@@ -1,0 +1,172 @@
+"""Configuration for the PyTorch port of the PolyStokes solver.
+
+The same schema as ``polystokes_tpu.config``: the enums, the reference
+constants and one frozen ``SolverParams`` with every field, the dtype as a
+torch dtype.  The port implements one configuration family so far (the
+untiled cube-region reduced step on the packed kernel path, CELL_ARROW
+preconditioned CG).  A field set to a value outside that family raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it; nothing
+is ignored silently.  Where the JAX default lies outside the family
+(``do_tile``, ``preconditioner``, ``fuse_pap``, ``bicgstab_fallback``,
+``use_pallas``) the port's default is the supported value.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+
+import torch
+
+
+class MatrixScheme(enum.Enum):
+    """Which system layout to assemble (reference: units.h:76-83)."""
+
+    PRESSURE_STRESS = "pressure_stress"
+    ALL_DOFS = "all_dofs"
+    PRESSURE_VELOCITY = "pressure_velocity"
+    ALL_DOFS_EXPLICIT_INTERIOR_STRESS = "all_dofs_explicit_interior_stress"
+
+
+class SolverType(enum.Enum):
+    """Which Krylov solver to use (reference: units.h:85-94)."""
+
+    PCG_MATRIX_VECTOR_PRODUCTS = "pcg_matrix_vector_products"
+    BICGSTAB = "bicgstab"
+    MINRES = "minres"
+    EIGEN = "eigen"
+
+
+class PreconditionerType(enum.Enum):
+    """Preconditioner choice (reference: units.h:47-53, plus the device
+    CELL_ARROW / MULTIGRID / REGION_ARROW additions of the JAX package)."""
+
+    IDENTITY = "identity"
+    DIAGONAL = "diagonal"
+    CELL_ARROW = "cell_arrow"
+    MULTIGRID = "multigrid"
+    REGION_ARROW = "region_arrow"
+
+
+class BasisOrder(enum.Enum):
+    """Polynomial reduction basis (reference: units.h:9-18)."""
+
+    QUADRATIC = 26
+    AFFINE = 11
+
+
+# Reference constants (exec/HDK_PolyStokesSolver.h:226-227).
+MINWEIGHT = 0.1
+NSAMPLES = 2
+
+# (field, supported value, ROADMAP.md item that ports the other values)
+_UNSUPPORTED = (
+    ("do_reduced_regions", True, "Queue 1 item 11 (uniform mode)"),
+    ("do_tile", False, "Queue 1 item 11 (tiled mode)"),
+    ("cube_regions", True, "Queue 1 item 6 (segmented general regions)"),
+    ("basis", BasisOrder.QUADRATIC, "Queue 1 item 11 (affine basis)"),
+    ("cc_host_callback", False, "Queue 1 item 3 (host connected components)"),
+    ("matrix_scheme", MatrixScheme.PRESSURE_STRESS, "Queue 1 item 13 (host explicit schemes)"),
+    ("solver_type", SolverType.PCG_MATRIX_VECTOR_PRODUCTS, "Queue 1 item 11 (other solvers)"),
+    ("preconditioner", PreconditionerType.CELL_ARROW, "Queue 1 items 11 and 15 (other preconditioners)"),
+    ("bicgstab_fallback", False, "Queue 1 item 11 (BiCGStab fallback)"),
+    ("deflation", False, "Queue 1 item 15 (deflation)"),
+    ("fuse_pap", False, "Queue 2 rows 4-5 (fused apply + pAp kernels)"),
+    ("fuse_update", False, "Queue 2 rows 9-11 (fused CG update)"),
+    ("coeff_bf16", False, "Queue 1 item 15 (bf16 coefficients)"),
+    ("use_pallas", True, "Queue 1 item 7 (the unpacked apply)"),
+    ("device_warm_start", False, "Queue 1 item 11 (device warm start)"),
+    ("export_matrices", False, "Queue 1 item 13 (export)"),
+    ("export_component_matrices", False, "Queue 1 item 13 (export)"),
+    ("export_stats", False, "Queue 1 item 13 (export)"),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverParams:
+    """All solver knobs of ``polystokes_tpu.config.SolverParams``.
+
+    ``use_warm_start`` feeds only the host EIGEN path, ``fuse_expand`` acts
+    only under ``fuse_update`` and the ``mg_*`` knobs only under MULTIGRID,
+    exactly as in the JAX package; each of those switches raises above."""
+
+    # -- discretization / solve control
+    tolerance: float = 1e-3
+    max_iterations: int = 5000
+    do_solve: bool = True
+    keep_non_converged: bool = True
+    use_warm_start: bool = True
+    device_warm_start: bool = False
+
+    # -- reduction topology
+    do_reduced_regions: bool = True
+    do_tile: bool = False
+    tile_size: int = 16
+    tile_padding: int = 2
+    liquid_boundary_layer_size: int = 2
+    solid_boundary_layer_size: int = 2
+    basis: BasisOrder = BasisOrder.QUADRATIC
+    max_regions: int = 1024
+    region_fix_max_iters: int = 8
+    cc_host_callback: bool = False
+    cube_regions: bool = True
+
+    # -- material
+    constant_density: float = 1.0
+    min_density: float = 1.0
+    max_density: float = 100000.0
+
+    # -- matrix & solver scheme
+    matrix_scheme: MatrixScheme = MatrixScheme.PRESSURE_STRESS
+    solver_type: SolverType = SolverType.PCG_MATRIX_VECTOR_PRODUCTS
+    preconditioner: PreconditionerType = PreconditionerType.CELL_ARROW
+    bicgstab_fallback: bool = False
+    deflation: bool = False
+    deflation_tile: int = 0
+    fuse_pap: bool = False
+    fuse_update: bool = False
+    fuse_expand: bool = True
+    coeff_bf16: bool = False
+
+    # -- multigrid preconditioner knobs
+    mg_levels: int = 5
+    mg_coarsest: int = 4
+    mg_smooth_degree: int = 3
+    mg_coarse_iters: int = 4
+
+    # -- numerics
+    dtype: torch.dtype = torch.float32
+
+    # -- packed kernel path (packed_apply.py)
+    use_pallas: bool = True
+
+    # -- observability
+    export_matrices: bool = False
+    export_component_matrices: bool = False
+    export_stats: bool = False
+    export_prefix: str = "output_data/polystokes."
+
+    @property
+    def reduced_dof(self) -> int:
+        return self.basis.value
+
+    @property
+    def effective_density(self) -> float:
+        """constant_density clamped into [min_density, max_density]."""
+        return min(max(self.constant_density, self.min_density), self.max_density)
+
+    def __post_init__(self):
+        if self.min_density > self.max_density:
+            raise ValueError(f"min_density {self.min_density} > max_density {self.max_density}")
+        if self.tile_size < 1 or self.tile_padding < 0:
+            raise ValueError("tile_size >= 1 and tile_padding >= 0 required")
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be torch.float32 or torch.float64, got {self.dtype}")
+        for name, supported, item in _UNSUPPORTED:
+            if getattr(self, name) != supported:
+                raise NotImplementedError(
+                    f"SolverParams.{name}={getattr(self, name)!r} is not ported yet "
+                    f"(only {supported!r}); see ROADMAP.md {item}"
+                )
+
+    def replace(self, **kw) -> "SolverParams":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,396 @@
+"""One implicit Stokes step: weights -> classify -> reduce -> assemble ->
+solve -> recover -> write back, the counterpart of ``polystokes_tpu.solver``
+on its packed-kernel path (reference: exec/HDK_PolyStokes.C:222-609
+``solveGasSubclass``).
+
+Every tensor lives on the device of the scene's tensors.  The Krylov loop
+runs on packed [7, nx, ny, nz] vectors through the three kernels of
+``packed_apply``: per-cube moments -> the small per-cube region algebra ->
+polynomial expand -> the reduced apply.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from . import krylov
+from .basis import monomial_matrix, monomial_shift_matrix, n_monomials
+from .classify import REDUCED, SOLID, UNSOLVED, Classification, classify, effective_max_regions, is_active
+from .config import MINWEIGHT, SolverParams
+from .grid import EDGE_OFFSET_AXES, Grid
+from .operators import (
+    Assembled,
+    PTau,
+    build_diagonals,
+    build_gated_weights,
+    coeff_fields,
+    face_at_cell,
+    forward_face_values,
+    scatter_face_to_edge,
+    transpose_from_faces,
+)
+from .packed_apply import (
+    _edge_to_slot,
+    _face_to_slot,
+    apply_reduced_packed,
+    expand_packed,
+    moments_packed,
+    pack_coeffs,
+    pack_ptau,
+    reduced_face_masks,
+    unpack_ptau,
+)
+from .precond import cell_arrow_factors
+from .reduced import _cube_scatter, build_reduced, expand_J, finalize_reduced, reduce_J
+from .weights import compute_weights
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """One solve's input state on the MAC grid (the reference's Houdini
+    input fields, exec/HDK_PolyStokes.C:235-314).
+
+    Optional ``surface_weights`` / ``collision_weights`` (3 face tensors
+    each) override the face liquid / fluid weights, floored at MINWEIGHT
+    where positive (Solver.cpp:183-237).  ``density`` is carried as in the
+    JAX package, where ``step`` does not read it either."""
+
+    surface_sdf: torch.Tensor  # (nx,ny,nz) liquid SDF at centers, <0 inside
+    collision_sdf: torch.Tensor  # (nx,ny,nz) solid SDF at centers, <0 inside
+    velocity: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # face arrays
+    collision_velocity: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    viscosity: torch.Tensor  # (nx,ny,nz) dynamic viscosity at centers
+    dt: torch.Tensor  # 0-d timestep
+    surface_weights: Optional[tuple] = None
+    collision_weights: Optional[tuple] = None
+    density: Optional[torch.Tensor] = None
+
+
+def _apply_input_weights(lw, fw, scene, dtype):
+    def floor_min(w):
+        w = w.to(dtype)
+        return torch.where(w > 0, torch.clamp(w, min=MINWEIGHT), 0.0)
+
+    if scene.surface_weights is not None:
+        lw = dict(lw)
+        for a in range(3):
+            lw[f"face{a}"] = floor_min(scene.surface_weights[a])
+    if scene.collision_weights is not None:
+        fw = dict(fw)
+        for a in range(3):
+            fw[f"face{a}"] = floor_min(scene.collision_weights[a])
+    return lw, fw
+
+
+def _pad_edge(a, axis, before, after):
+    """Edge-mode pad of one axis."""
+    n = a.shape[axis]
+    parts = [a.narrow(axis, 0, 1)] * before + [a] + [a.narrow(axis, n - 1, 1)] * after
+    return torch.cat(parts, dim=axis)
+
+
+def edge_viscosity(viscosity_c, edge_axis: int):
+    """Viscosity at edges: the average of the 4 surrounding cell centers
+    with edge-clamped borders (Solver.cpp:693-695)."""
+    p, q = EDGE_OFFSET_AXES[edge_axis]
+    v = _pad_edge(_pad_edge(viscosity_c, p, 1, 1), q, 1, 1)
+    n = viscosity_c.shape
+
+    def view(dp, dq):
+        return v.narrow(p, dp, n[p] + 1).narrow(q, dq, n[q] + 1)
+
+    return 0.25 * (view(0, 0) + view(0, 1) + view(1, 0) + view(1, 1))
+
+
+# ---------------------------------------------------------------------------
+# Assembly
+# ---------------------------------------------------------------------------
+
+def _solid_rhs(grid: Grid, cls: Classification, asm, fluid_w, collision_velocity, dtype) -> PTau:
+    """Solid-velocity boundary RHS terms (ConstructMatrixBlocks.cpp:424-441,
+    493-511, 581-599)."""
+    dev = asm.clw_s.device
+    p_out = torch.zeros(grid.center_shape, dtype=dtype, device=dev)
+    tc_out = [torch.zeros(grid.center_shape, dtype=dtype, device=dev) for _ in range(3)]
+    te_out = [torch.zeros(fluid_w[f"edge{e}"].shape, dtype=dtype, device=dev) for e in range(3)]
+    phi_c = (fluid_w["center"] < 1.0).to(dtype)
+    for a in range(3):
+        c_lo, c_hi, erow = coeff_fields(asm, a)
+        svel = collision_velocity[a].to(dtype) * is_active(cls.face_labels[a]).to(dtype)
+        w1 = svel * (fluid_w[f"face{a}"] < 1.0).to(dtype)
+        t1 = face_at_cell(c_hi * w1, a, 0) - face_at_cell(c_lo * w1, a, 1)
+        t2 = (face_at_cell(c_hi * svel, a, 0) - face_at_cell(c_lo * svel, a, 1)) * phi_c
+        contrib = t1 - t2
+        p_out = p_out + contrib
+        tc_out[a] = tc_out[a] + contrib
+        for e, (elo, ehi) in erow.items():
+            phi_e = (fluid_w[f"edge{e}"] < 1.0).to(dtype)
+            s1 = scatter_face_to_edge(ehi * w1, a, e, 1) - scatter_face_to_edge(elo * w1, a, e, 0)
+            s2 = (scatter_face_to_edge(ehi * svel, a, e, 1) - scatter_face_to_edge(elo * svel, a, e, 0)) * phi_e
+            te_out[e] = te_out[e] + s1 - s2
+    return PTau(p=p_out, tc=tuple(tc_out), te=tuple(te_out))
+
+
+def assemble(grid: Grid, scene: Scene, cls: Classification, liquid_w, fluid_w, params: SolverParams, R: int):
+    """All operator state of the pressure-stress factored scheme
+    (AssembleSystem.cpp:432-470).  Returns (Assembled, ReducedData)."""
+    dtype = params.dtype
+    dev = scene.surface_sdf.device
+    dt = scene.dt.to(dtype)
+    visc_c = scene.viscosity.to(dtype)
+    visc_e = tuple(edge_viscosity(visc_c, e) for e in range(3))
+    clw_s, elw_s, ffw = build_gated_weights(grid, cls, liquid_w, fluid_w, params)
+    mc, mc_inv, uinv_c, u_c, uinv_e, u_e = build_diagonals(grid, cls, liquid_w, fluid_w, visc_c, visc_e, params)
+    vmask = tuple(is_active(cls.face_labels[a]).to(dtype) for a in range(3))
+    rd = build_reduced(grid, cls, scene.velocity, visc_c, visc_e, params, R)
+    rd = finalize_reduced(rd, cls.region_valid, dt, dtype, params.reduced_dof)
+    asm = Assembled(
+        dt=dt,
+        inv_dx=torch.tensor(1.0 / grid.dx, dtype=dtype, device=dev),
+        clw_s=clw_s,
+        elw_s=elw_s,
+        ffw=ffw,
+        mc=mc,
+        mc_inv=mc_inv,
+        uinv_c=uinv_c,
+        u_c=u_c,
+        uinv_e=uinv_e,
+        u_e=u_e,
+        b_v=tuple(scene.velocity[a].to(dtype) * mc[a] for a in range(3)),
+        old_v=tuple(scene.velocity[a].to(dtype) * vmask[a] for a in range(3)),
+        rhs_solid=None,
+        com=rd.com,
+        binv=rd.binv,
+        mr=rd.mr,
+        vr=rd.vr,
+        best_fit=rd.best_fit,
+        b_w=rd.b_w,
+        region_valid=cls.region_valid,
+        face_region=cls.face_region,
+    )
+    asm = dataclasses.replace(asm, rhs_solid=_solid_rhs(grid, cls, asm, fluid_w, scene.collision_velocity, dtype))
+    return asm, rd
+
+
+# ---------------------------------------------------------------------------
+# The packed Schur operator (ApplyPressureStressMatrix.h:102-179)
+# ---------------------------------------------------------------------------
+
+def _region_algebra_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int):
+    """The per-cube region algebra between the moments and expand kernels:
+    mom [cs0, cs1, 3K, cs2] -> v [cs0, cs1, 3K, cs2], the cube-origin
+    polynomial coefficients of BInv (J x); plus the reduced-face mask stack.
+    The shift S(com - origin) turns the kernels' origin moments into
+    COM-relative ones here, so the kernels never see the COM."""
+    dtype = params.dtype
+    dev = asm.com.device
+    T = params.tile_size
+    K = n_monomials(params.basis)
+    A_mats = [torch.as_tensor(monomial_matrix(a, params.basis), dtype=dtype, device=dev) for a in range(3)]
+    cs = tuple(-(-n // T) for n in grid.res)
+    axes = [torch.arange(c, dtype=dtype, device=dev) * T for c in cs]
+    origins = torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1).reshape(-1, 3)
+    roc = cls.region_of_cube
+    safe = roc.clamp(0, asm.com.shape[0] - 1).long()
+    com_cube = torch.where((roc >= 0)[:, None], asm.com[safe], 0.0)
+    cprime = com_cube - origins
+    S = monomial_shift_matrix(cprime[:, 0], cprime[:, 1], cprime[:, 2], params.basis)  # [nc, K, K]
+    safe_cube = roc.clamp(0, R - 1).long()
+    cube_ok = (roc >= 0).to(dtype)
+    red_packed = torch.stack([_face_to_slot(m.to(dtype), a) for a, m in enumerate(reduced_face_masks(cls))], dim=0).contiguous()
+
+    def algebra(mom):
+        m = mom.permute(0, 1, 3, 2).reshape(-1, 3, K)
+        m_rel = torch.einsum("ckj,caj->cak", S, m)
+        y = sum(m_rel[:, a, :] @ A_mats[a].T for a in range(3))  # [nc, D]
+        w = torch.einsum("rij,rj->ri", asm.binv, _cube_scatter(y, roc, R))
+        w_cube = w[safe_cube] * cube_ok[:, None]
+        v_com = torch.stack([w_cube @ A_mats[a] for a in range(3)], dim=1)  # [nc, 3, K]
+        v_origin = torch.einsum("ckj,cak->caj", S, v_com)
+        return v_origin.reshape(cs[0], cs[1], cs[2], 3 * K).permute(0, 1, 3, 2).contiguous()
+
+    return algebra, red_packed
+
+
+def make_apply_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int):
+    """The kernel apply on packed [7, nx, ny, nz] vectors: moments kernel
+    -> region algebra -> expand kernel -> reduced-apply kernel (which
+    recomputes s rather than storing it)."""
+    coeffs = pack_coeffs(asm, cls)
+    T = params.tile_size
+    algebra, red_packed = _region_algebra_packed(grid, cls, asm, params, R)
+
+    def apply_packed(xp):
+        up = expand_packed(algebra(moments_packed(xp, coeffs, T)), red_packed, T)
+        return apply_reduced_packed(xp, coeffs, up)
+
+    return apply_packed
+
+
+def precond_factors_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams):
+    """Loop-invariant CELL_ARROW factor fields in the packed layout."""
+    k, inv_d, kd, inv_schur, te_inv = cell_arrow_factors(grid, cls, asm, params)
+    return dict(k=list(k), inv_d=list(inv_d), kd=list(kd), inv_schur=inv_schur,
+                te_inv_s=[_edge_to_slot(te_inv[e], e) for e in range(3)])
+
+
+def make_preconditioner_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, factors=None):
+    """The packed CELL_ARROW solve (closed-form per-cell arrow inverse)."""
+    if factors is None:
+        factors = precond_factors_packed(grid, cls, asm, params)
+    k, inv_d, kd = factors["k"], factors["inv_d"], factors["kd"]
+    inv_schur, te_inv_s = factors["inv_schur"], factors["te_inv_s"]
+
+    def solve_arrow(rp):
+        z_p = (rp[0] + sum(kd[a] * rp[1 + a] for a in range(3))) * inv_schur
+        z_tc = [(rp[1 + a] + k[a] * z_p) * inv_d[a] for a in range(3)]
+        z_te = [rp[4 + e] * te_inv_s[e] for e in range(3)]
+        return torch.stack([z_p] + z_tc + z_te, dim=0)
+
+    return solve_arrow
+
+
+def build_rhs(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int) -> PTau:
+    """b = -[G Dt]^T McInv b_v - (1/dt) [JG JDt]^T BInv b_w + rhs_solid
+    (AssembleSystem.cpp:448-459)."""
+    w0 = torch.einsum("rij,rj->ri", asm.binv, asm.b_w) / asm.dt
+    u0 = expand_J(grid, cls, asm.com, w0, params)
+    fv = [-(asm.mc_inv[a] * asm.b_v[a]) - u0[a] for a in range(3)]
+    return transpose_from_faces(asm, fv) + asm.rhs_solid
+
+
+def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParams):
+    """(apply_K, precond, b_K, x0_K) on the packed layout: the unsharded,
+    undeflated branch of the JAX package's builder, zero initial guess."""
+    R = effective_max_regions(grid, params)
+    b_K = pack_ptau(build_rhs(grid, cls, asm, params, R))
+    apply_K = make_apply_packed(grid, cls, asm, params, R)
+    precond = make_preconditioner_packed(grid, cls, asm, params, precond_factors_packed(grid, cls, asm, params))
+    return apply_K, precond, b_K, torch.zeros_like(b_K)
+
+
+def recover_velocity(grid: Grid, cls: Classification, asm: Assembled, x: PTau, params: SolverParams, R: int):
+    """v = dt McInv (b_v/dt - G p - Dt tau); w = BInv (b_w/dt - JG p - JDt tau)
+    (Solver.cpp:493-510)."""
+    s = forward_face_values(asm, x)
+    v = tuple(asm.mc_inv[a] * asm.b_v[a] - asm.dt * asm.mc_inv[a] * s[a] for a in range(3))
+    y = reduce_J(grid, cls, asm.com, s, params, R)
+    w = torch.einsum("rij,rj->ri", asm.binv, asm.b_w / asm.dt - y)
+    return v, w
+
+
+def apply_solution_to_velocity(grid: Grid, cls: Classification, asm: Assembled, scene: Scene, v, w, params: SolverParams):
+    """Per-face write-back (Solver.cpp:938-1028): reduced faces evaluate
+    the region polynomial, active faces take the solved value, solid faces
+    the collision velocity, invalid faces keep their velocity.  Also
+    returns the valid-face masks (Classifier.cpp:5-54)."""
+    dtype = params.dtype
+    u_red = expand_J(grid, cls, asm.com, w, params)
+    new_vel, valid = [], []
+    for a in range(3):
+        lbl = cls.face_labels[a]
+        val = lbl != UNSOLVED
+        red = (lbl == REDUCED) & (cls.face_region[a] >= 0)
+        old = scene.velocity[a].to(dtype)
+        out = torch.where(lbl == SOLID, scene.collision_velocity[a].to(dtype), old)
+        out = torch.where(is_active(lbl), v[a], out)
+        out = torch.where(red, u_red[a], out)
+        new_vel.append(torch.where(val, out, old))
+        valid.append(val)
+    return tuple(new_vel), tuple(valid)
+
+
+# ---------------------------------------------------------------------------
+# The step
+# ---------------------------------------------------------------------------
+
+def _dof_counts(cls: Classification):
+    n_center = int(is_active(cls.cell_labels).sum())
+    n_faces = sum(int(is_active(l).sum()) for l in cls.face_labels)
+    n_edges = sum(int(is_active(l).sum()) for l in cls.edge_labels)
+    return n_center, n_faces, n_edges
+
+
+def _boundary_active(cls: Classification) -> int:
+    """Active faces and edges on the index-0 planes the packed layout drops."""
+    total = 0
+    for a in range(3):
+        total += int(is_active(cls.face_labels[a].narrow(a, 0, 1)).sum())
+    for e in range(3):
+        for ax in EDGE_OFFSET_AXES[e]:
+            total += int(is_active(cls.edge_labels[e].narrow(ax, 0, 1)).sum())
+    return total
+
+
+def _weights(grid: Grid, scene: Scene, params: SolverParams):
+    liquid_w, fluid_w = compute_weights(grid, scene.surface_sdf, scene.collision_sdf, params.dtype)
+    return _apply_input_weights(liquid_w, fluid_w, scene, params.dtype)
+
+
+def _setup(grid: Grid, scene: Scene, params: SolverParams):
+    """Weights -> classify -> assemble: the scene-dependent part."""
+    liquid_w, fluid_w = _weights(grid, scene, params)
+    cls = classify(grid, liquid_w, fluid_w, params)
+    asm, _ = assemble(grid, scene, cls, liquid_w, fluid_w, params, effective_max_regions(grid, params))
+    return cls, asm
+
+
+def boundary_activity(grid: Grid, scene: Scene, params: SolverParams) -> int:
+    """Count of active faces and edges on the dropped index-0 planes; the
+    packed layout is exact iff it is 0."""
+    return _boundary_active(classify(grid, *_weights(grid, scene, params), params))
+
+
+def check_pallas(grid: Grid, scene: Scene, params: SolverParams) -> SolverParams:
+    """Pre-flight of the packed layout: raises ValueError when the scene
+    has active DOFs on the dropped index-0 planes (the unpacked apply that
+    the JAX package falls back to is not ported); else returns params."""
+    n = boundary_activity(grid, scene, params)
+    if n:
+        raise ValueError(
+            f"scene has {n} active DOFs on the domain-boundary index-0 planes, "
+            "which the packed layout drops"
+        )
+    return params
+
+
+def step(grid: Grid, scene: Scene, params: SolverParams):
+    """One Stokes solve.  Returns (new_velocity, valid_masks, stats).
+    The packed kernels need ``tile_size`` to divide every resolution."""
+    R = effective_max_regions(grid, params)
+    cls, asm = _setup(grid, scene, params)
+    apply_K, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params)
+    if params.do_solve:
+        res = krylov.pcg(apply_K, b_K, x0_K, precond=precond, tol=params.tolerance, max_iters=params.max_iterations)
+    else:
+        res = krylov.KrylovResult(x=x0_K, iterations=0, error=0.0, converged=True, applies=0)
+    x = unpack_ptau(res.x)
+    v, w = recover_velocity(grid, cls, asm, x, params, R)
+    new_vel, valid = apply_solution_to_velocity(grid, cls, asm, scene, v, w, params)
+
+    # fail safe on the packed layout invariant: liquid touching the domain
+    # box puts active DOFs on the dropped index-0 planes, so the solve is
+    # reported as failed instead of returning wrong physics
+    boundary_active = _boundary_active(cls)
+    converged = bool(res.converged) and boundary_active == 0
+    if not params.keep_non_converged and not converged:
+        new_vel = tuple(scene.velocity[a].to(params.dtype) for a in range(3))
+
+    n_center, n_faces, n_edges = _dof_counts(cls)
+    n_regions = int(cls.n_regions)
+    stats = {
+        "boundary_active": boundary_active,
+        "iterations": res.iterations,
+        "error": res.error,
+        "converged": converged,
+        "operator_applies": res.applies,
+        "n_pressures": n_center,
+        "n_active_velocities": n_faces,
+        "n_stresses": 3 * n_center + n_edges,
+        "n_regions": n_regions,
+        "n_reduced_dofs": n_regions * params.reduced_dof,
+        "region_overflow": bool(cls.region_overflow),
+    }
+    return new_vel, valid, stats
