@@ -1,6 +1,7 @@
 """Grid classification: material labels, boundary bands and reduced
 regions, down the untiled cube-region path of ``polystokes_tpu.classify``
-(``do_tile=False``, ``cube_regions=True``).
+(``do_tile=False``, ``cube_regions=True``), and its uniform branch
+(``do_reduced_regions=False``: every fluid DOF active, no regions).
 
 Labels and region ids equal the JAX package's exactly: per-region arrays
 only compare when the region numbering matches, so every step keeps the
@@ -426,17 +427,45 @@ class Classification:
 
 
 def effective_max_regions(grid: Grid, params: SolverParams) -> int:
-    """Region slot bound: ``max_regions`` on the untiled path."""
-    return params.max_regions
+    """Region slot bound: ``max_regions`` on the untiled path, 1 (an unused
+    slot) for the uniform solve."""
+    return params.max_regions if params.do_reduced_regions else 1
+
+
+def _classify_uniform(grid: Grid, cell_labels, face_labels, edge_labels, max_regions: int) -> Classification:
+    """The uniform branch: GENERICFLUID becomes ACTIVEFLUID everywhere and
+    every region map is INVALID_REGION."""
+    def activate(lbl):
+        return _label(lbl == GENERICFLUID, ACTIVEFLUID, lbl)
+
+    dev = cell_labels.device
+
+    def invalid(shape):
+        return torch.full(shape, INVALID_REGION, dtype=torch.int32, device=dev)
+
+    return Classification(
+        cell_labels=activate(cell_labels),
+        face_labels=tuple(activate(l) for l in face_labels),
+        edge_labels=tuple(activate(l) for l in edge_labels),
+        cell_region=invalid(grid.center_shape),
+        face_region=tuple(invalid(grid.face_shape(a)) for a in range(3)),
+        edge_region=tuple(invalid(grid.edge_shape(e)) for e in range(3)),
+        region_valid=torch.zeros((max_regions,), dtype=torch.bool, device=dev),
+        n_regions=torch.tensor(0, dtype=torch.int32, device=dev),
+        region_overflow=torch.tensor(False, device=dev),
+        region_of_cube=invalid((1,)),
+    )
 
 
 def classify(grid: Grid, liquid_w, fluid_w, params: SolverParams) -> Classification:
-    """Full label pipeline of the untiled cube-region path
-    (exec/HDK_PolyStokes.C:356-404)."""
+    """Full label pipeline of the untiled cube-region path, or the uniform
+    one (exec/HDK_PolyStokes.C:356-404)."""
     max_regions = effective_max_regions(grid, params)
-    cell_labels = construct_reduced_regions(classify_cells(liquid_w, fluid_w), liquid_w, params)
     face_labels = [classify_faces(liquid_w, fluid_w, a) for a in range(3)]
     edge_labels = [classify_edges(liquid_w, fluid_w, e) for e in range(3)]
+    if not params.do_reduced_regions:
+        return _classify_uniform(grid, classify_cells(liquid_w, fluid_w), face_labels, edge_labels, max_regions)
+    cell_labels = construct_reduced_regions(classify_cells(liquid_w, fluid_w), liquid_w, params)
 
     comp = connected_components(cell_labels, liquid_w, sum(grid.res))
     cell_region, region_valid, _, overflow = compact_regions(comp, max_regions)

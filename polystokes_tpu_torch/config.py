@@ -2,13 +2,20 @@
 
 The same schema as ``polystokes_tpu.config``: the enums, the reference
 constants and one frozen ``SolverParams`` with every field, the dtype as a
-torch dtype.  The port implements one configuration family so far (the
-untiled cube-region reduced step on the packed kernel path, CELL_ARROW
-preconditioned CG).  A field set to a value outside that family raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it; nothing
-is ignored silently.  Where the JAX default lies outside the family
-(``do_tile``, ``preconditioner``, ``fuse_pap``, ``bicgstab_fallback``,
-``use_pallas``) the port's default is the supported value.
+torch dtype.  The port implements these families on the packed kernel
+path with CELL_ARROW preconditioned CG:
+
+* the untiled cube-region reduced step (``do_reduced_regions=True``,
+  ``do_tile=False``, ``cube_regions=True``);
+* the uniform step (``do_reduced_regions=False``), the baseline the
+  reduced step is measured against;
+
+each with ``fuse_pap`` on (the fused apply that also returns <p, A p>,
+the JAX default) or off.  A field set to a value outside these families
+raises ``NotImplementedError`` naming the ROADMAP.md item that ports it;
+nothing is ignored silently.  Where the JAX default lies outside them
+(``do_tile``, ``preconditioner``, ``bicgstab_fallback``, ``use_pallas``)
+the port's default is the supported value.
 """
 from __future__ import annotations
 
@@ -60,7 +67,6 @@ NSAMPLES = 2
 
 # (field, supported value, ROADMAP.md item that ports the other values)
 _UNSUPPORTED = (
-    ("do_reduced_regions", True, "Queue 1 item 11 (uniform mode)"),
     ("do_tile", False, "Queue 1 item 11 (tiled mode)"),
     ("cube_regions", True, "Queue 1 item 6 (segmented general regions)"),
     ("basis", BasisOrder.QUADRATIC, "Queue 1 item 11 (affine basis)"),
@@ -70,7 +76,6 @@ _UNSUPPORTED = (
     ("preconditioner", PreconditionerType.CELL_ARROW, "Queue 1 items 11 and 15 (other preconditioners)"),
     ("bicgstab_fallback", False, "Queue 1 item 11 (BiCGStab fallback)"),
     ("deflation", False, "Queue 1 item 15 (deflation)"),
-    ("fuse_pap", False, "Queue 2 rows 4-5 (fused apply + pAp kernels)"),
     ("fuse_update", False, "Queue 2 rows 9-11 (fused CG update)"),
     ("coeff_bf16", False, "Queue 1 item 15 (bf16 coefficients)"),
     ("use_pallas", True, "Queue 1 item 7 (the unpacked apply)"),
@@ -122,7 +127,7 @@ class SolverParams:
     bicgstab_fallback: bool = False
     deflation: bool = False
     deflation_tile: int = 0
-    fuse_pap: bool = False
+    fuse_pap: bool = True
     fuse_update: bool = False
     fuse_expand: bool = True
     coeff_bf16: bool = False

@@ -23,18 +23,17 @@
 // apply_reduced_kernel replaces apply_reduced_packed (_apply_reduced_kernel,
 //   _transpose_out).  The full reduced A x given the expanded u: 7 outputs
 //   per slot from w_a = ffw_a (-dtMcInv_a s_a - u_a) at the slot and at
-//   one-slot neighbours.  Bound: memory at the roofline (24 channels read,
-//   7 written, about 260 MB at 128^3), but this first version recomputes w
-//   at the neighbours straight from global memory: 12 w evaluations per
-//   slot, each reading some 17 values, served mostly by L1/L2.  Staging w
-//   for a tile plus a one-slot halo in shared memory is the known next step.
+//   one-slot neighbours (stencil.cuh transpose_contrib).  Bound: memory at
+//   the roofline (24 channels read, 7 written, about 260 MB at 128^3), but
+//   this first version recomputes w at the neighbours straight from global
+//   memory: 12 w evaluations per slot, each reading some 17 values, served
+//   mostly by L1/L2.  Staging w for a tile plus a one-slot halo in shared
+//   memory is the known next step.
 #include <cuda_runtime.h>
 
 #include "stencil.cuh"
 
 namespace ps {
-
-constexpr int kThreads = 256;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -66,22 +65,9 @@ moments_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restrict__
     }
   }
 
-  __shared__ T part[kThreads / 32][3 * K];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int m = 0; m < 3 * K; ++m) {
-    T v = acc[m];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) part[warp][m] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 3 * K) {
-    T v = T(0);
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v += part[w][threadIdx.x];
-    // mom[c0, c1, a*K + k, c2]
-    mom[((long long)(c0 * cs1 + c1) * (3 * K) + threadIdx.x) * cs2 + c2] = v;
-  }
+  const T total = block_sum(acc);
+  // mom[c0, c1, a*K + k, c2]
+  if (threadIdx.x < 3 * K) mom[((long long)(c0 * cs1 + c1) * (3 * K) + threadIdx.x) * cs2 + c2] = total;
 }
 
 template <typename T>
@@ -112,44 +98,15 @@ apply_reduced_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* 
   if (q >= d.plane) return;
   const int k = (int)(q % d.nz), j = (int)((q / d.nz) % d.ny), i = (int)(q / ((long long)d.nz * d.ny));
 
-  T w0[3], wdn[3];
+  auto wf = [&](int a, int ii, int jj, int kk) { return face_w(x, c, u, a, ii, jj, kk, d); };
+  T w0[3], o[7];
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    w0[a] = face_w(x, c, u, a, i, j, k, d);
-    wdn[a] = face_w(x, c, u, a, i - (a == 0), j - (a == 1), k - (a == 2), d);
-  }
-  const T clw = __ldg(c + C_CLW * d.plane + q);
-  const T uinv2c = __ldg(c + C_UINV2C * d.plane + q);
-  T p_acc = T(0);
+  for (int a = 0; a < 3; ++a) w0[a] = wf(a, i, j, k);
+  transpose_contrib(c, i, j, k, d, w0, wf, o);
+  sub_mass_terms(x, c, q, d, o);
 #pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const T dd = wdn[a] - w0[a];
-    p_acc = (a == 0) ? dd : p_acc + dd;
-    out[(1 + a) * d.plane + q] = -clw * dd - uinv2c * __ldg(x + (1 + a) * d.plane + q);
-  }
-  out[q] = clw * p_acc;
-
-  // edge e collects w_a(q + e_t) - w_a(q) over its two offset axes a, t = 3 - a - e
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    const int pa = (e == 0) ? 1 : 0, qa = (e == 2) ? 1 : 2;
-    T acc = T(0);
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      const int a = s == 0 ? pa : qa;
-      const int t = 3 - a - e;
-      const T wup = face_w(x, c, u, a, i + (t == 0), j + (t == 1), k + (t == 2), d);
-      const T dv = wup - w0[a];
-      acc = (s == 0) ? dv : acc + dv;
-    }
-    out[(4 + e) * d.plane + q] = __ldg(c + (C_ELW + e) * d.plane + q) * acc -
-                                 __ldg(c + (C_UINV2E + e) * d.plane + q) * __ldg(x + (4 + e) * d.plane + q);
-  }
+  for (int ch = 0; ch < 7; ++ch) out[ch * d.plane + q] = o[ch];
 }
-
-inline Dims dims(int nx, int ny, int nz) { return Dims{nx, ny, nz, (long long)nx * ny * nz}; }
-
-inline unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 template <typename T>
 int moments(const T* x, const T* c, T* mom, int nx, int ny, int nz, int tile, cudaStream_t stream) {

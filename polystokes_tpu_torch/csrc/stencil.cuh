@@ -1,6 +1,7 @@
-// Device functions shared by the packed-apply kernels (packed_apply.cu):
-// zero-filled loads in the packed slot layout, the forward stencil s_a,
-// the transposed face value w_a and the quadratic monomials.
+// Device functions shared by the packed-apply kernels (packed_apply.cu,
+// fused_apply.cu): zero-filled loads in the packed slot layout, the
+// forward stencil s_a, the face values w_a the transpose spreads, the
+// transpose itself, the quadratic monomials and a thread-block sum.
 //
 // Packed layout (see polystokes_tpu_torch/packed_apply.py): every field is
 // a channel of a contiguous [C, nx, ny, nz] array, z fastest.  Solve
@@ -19,6 +20,8 @@
 #include <cuda_runtime.h>
 
 namespace ps {
+
+constexpr int kThreads = 256;  // threads per block of every kernel
 
 enum : int {
   C_CLW = 0,
@@ -90,6 +93,73 @@ __device__ __forceinline__ T face_w(const T* __restrict__ x, const T* __restrict
   return __ldg(c + (C_FFW + a) * d.plane + q) * f;
 }
 
+// The grid branch's face value w_a = ffw_a * (-dtMcInv_a * s_a): face_w
+// without u, from s_a at the slot.
+template <typename T>
+__device__ __forceinline__ T grid_w_from_s(const T* __restrict__ c, int a, long long q, const Dims& d, T s) {
+  return __ldg(c + (C_FFW + a) * d.plane + q) * (-__ldg(c + (C_DTMCINV + a) * d.plane + q) * s);
+}
+
+template <typename T>
+__device__ __forceinline__ T face_w_grid(const T* __restrict__ x, const T* __restrict__ c, int a, int i, int j, int k, const Dims& d) {
+  if (!d.inside(i, j, k)) return T(0);
+  return grid_w_from_s(c, a, d.at(i, j, k), d, forward_s(x, c, a, i, j, k, d));
+}
+
+// The reduced branch's face value w_a = ffw_a * (-u_a) (_transpose_contrib
+// of polystokes_tpu/pallas_apply.py on w = -u, its own ffw factor kept:
+// dropping it is wrong at solid-cut faces).
+template <typename T>
+__device__ __forceinline__ T face_w_u(const T* __restrict__ c, const T* __restrict__ u, int a, int i, int j, int k, const Dims& d) {
+  if (!d.inside(i, j, k)) return T(0);
+  const long long q = d.at(i, j, k);
+  return __ldg(c + (C_FFW + a) * d.plane + q) * -__ldg(u + a * d.plane + q);
+}
+
+// The 7 outputs of the transpose [G Dt]^T at slot (i, j, k), without mass
+// terms: w0[a] is w_a at the slot and wf(a, i, j, k) w_a anywhere (0
+// outside the grid).  With t = 3 - a - e:
+//   o[0]   = clw sum_a (w_a[q - e_a] - w_a[q])
+//   o[1+a] = -clw (w_a[q - e_a] - w_a[q])
+//   o[4+e] = elw_e sum_{a != e} (w_a[q + e_t] - w_a[q])
+template <typename T, typename WF>
+__device__ __forceinline__ void transpose_contrib(const T* __restrict__ c, int i, int j, int k, const Dims& d, const T w0[3], const WF& wf, T o[7]) {
+  const long long q = d.at(i, j, k);
+  const T clw = __ldg(c + C_CLW * d.plane + q);
+  T p_acc = T(0);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T dd = wf(a, i - (a == 0), j - (a == 1), k - (a == 2)) - w0[a];
+    p_acc = (a == 0) ? dd : p_acc + dd;
+    o[1 + a] = -clw * dd;
+  }
+  o[0] = clw * p_acc;
+  // edge e collects w_a(q + e_t) - w_a(q) over its two offset axes a
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const int pa = (e == 0) ? 1 : 0, qa = (e == 2) ? 1 : 2;
+    T acc = T(0);
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int a = s == 0 ? pa : qa;
+      const int t = 3 - a - e;
+      const T dv = wf(a, i + (t == 0), j + (t == 1), k + (t == 2)) - w0[a];
+      acc = (s == 0) ? dv : acc + dv;
+    }
+    o[4 + e] = __ldg(c + (C_ELW + e) * d.plane + q) * acc;
+  }
+}
+
+// The uInv mass terms: o[1+a] -= 0.5 uInv_c x[1+a], o[4+e] -= 0.5 uInv_e x[4+e].
+template <typename T>
+__device__ __forceinline__ void sub_mass_terms(const T* __restrict__ x, const T* __restrict__ c, long long q, const Dims& d, T o[7]) {
+  const T uinv2c = __ldg(c + C_UINV2C * d.plane + q);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) o[1 + a] = o[1 + a] - uinv2c * __ldg(x + (1 + a) * d.plane + q);
+#pragma unroll
+  for (int e = 0; e < 3; ++e) o[4 + e] = o[4 + e] - __ldg(c + (C_UINV2E + e) * d.plane + q) * __ldg(x + (4 + e) * d.plane + q);
+}
+
 template <typename T>
 __device__ __forceinline__ void monomials(T px, T py, T pz, T m[K]) {
   m[0] = T(1);
@@ -103,5 +173,31 @@ __device__ __forceinline__ void monomials(T px, T py, T pz, T m[K]) {
   m[8] = py * pz;
   m[9] = pz * pz;
 }
+
+// Sums each of the N per-thread values acc[m] over the thread block (warp
+// shuffles, then one shared-memory row per warp); thread m < N returns the
+// block's total of value m, the others 0.  A fixed order: no atomics.
+template <typename T, int N>
+__device__ __forceinline__ T block_sum(const T (&acc)[N]) {
+  __shared__ T part[kThreads / 32][N];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int m = 0; m < N; ++m) {
+    T v = acc[m];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) part[warp][m] = v;
+  }
+  __syncthreads();
+  T v = T(0);
+  if (threadIdx.x < N) {
+    for (int w = 0; w < kThreads / 32; ++w) v += part[w][threadIdx.x];
+  }
+  return v;
+}
+
+inline Dims dims(int nx, int ny, int nz) { return Dims{nx, ny, nz, (long long)nx * ny * nz}; }
+
+inline unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace ps

@@ -53,14 +53,20 @@ def pcg_init(apply_A: Callable, b, x0, precond: Callable = None) -> PCGCarry:
     return PCGCarry(x=x0, r=r, p=z, rsold=rsold, k=0, rre=rre0, done=done)
 
 
-def pcg_segment(apply_A: Callable, carry: PCGCarry, precond: Callable = None, tol: float = 1e-3, max_iters: int = 5000) -> PCGCarry:
-    """Iterate until convergence or ``max_iters`` total iterations."""
+def pcg_segment(apply_A: Callable, carry: PCGCarry, precond: Callable = None, tol: float = 1e-3, max_iters: int = 5000,
+                apply_dot: Callable = None) -> PCGCarry:
+    """Iterate until convergence or ``max_iters`` total iterations.
+    ``apply_dot(p) -> (A p, <p, A p>)``, when given, replaces the apply and
+    the pAp dot (the fused kernels of ``fuse_pap``)."""
     if precond is None:
         precond = lambda r: r  # noqa: E731
     x, r, p, rsold, k, rre, done = carry
     while not done and k < max_iters:
-        Ap = apply_A(p)
-        pAp = _dot(p, Ap)
+        if apply_dot is not None:
+            Ap, pAp = apply_dot(p)
+        else:
+            Ap = apply_A(p)
+            pAp = _dot(p, Ap)
         alpha = rsold / torch.where(pAp != 0, pAp, 1.0)
         x = x + alpha * p
         r = r - alpha * Ap
@@ -80,8 +86,10 @@ def pcg_result(carry: PCGCarry) -> KrylovResult:
                         converged=carry.done, applies=1 + carry.k)
 
 
-def pcg(apply_A: Callable, b, x0, precond: Callable = None, tol: float = 1e-3, max_iters: int = 5000) -> KrylovResult:
+def pcg(apply_A: Callable, b, x0, precond: Callable = None, tol: float = 1e-3, max_iters: int = 5000,
+        apply_dot: Callable = None) -> KrylovResult:
     """Preconditioned CG; iterations are 0-based at convergence, max_iters
-    when not converged."""
+    when not converged.  ``pcg_init`` always uses ``apply_A``; the loop uses
+    ``apply_dot`` when given."""
     carry = pcg_init(apply_A, b, x0, precond)
-    return pcg_result(pcg_segment(apply_A, carry, precond, tol=tol, max_iters=max_iters))
+    return pcg_result(pcg_segment(apply_A, carry, precond, tol=tol, max_iters=max_iters, apply_dot=apply_dot))

@@ -49,12 +49,15 @@ def _diag_quadratic_form(grid, cls, asm, params, a):
 
 def _axis_cell_k_and_edge_diag(grid, cls, asm: Assembled, params: SolverParams):
     """Per-axis cell coefficients k_a and the edge-stress diagonals (the
-    halves of |diag(A)| without the uInv mass terms)."""
+    halves of |diag(A)| without the uInv mass terms); the reduced quadratic
+    form enters only when there are regions."""
     k = []
     te_d = [torch.zeros_like(asm.uinv_e[e]) for e in range(3)]
     for a in range(3):
         c_lo, c_hi, erow = coeff_fields(asm, a)
-        wgt = asm.dt * asm.mc_inv[a] + _diag_quadratic_form(grid, cls, asm, params, a)
+        wgt = asm.dt * asm.mc_inv[a]
+        if params.do_reduced_regions:
+            wgt = wgt + _diag_quadratic_form(grid, cls, asm, params, a)
         # the cell's lower face carries the c_hi coefficient, upper face c_lo
         k.append(face_at_cell(c_hi**2 * wgt, a, 0) + face_at_cell(c_lo**2 * wgt, a, 1))
         for e, (elo, ehi) in erow.items():

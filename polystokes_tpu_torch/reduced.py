@@ -80,11 +80,20 @@ def block_broadcast(vals, facelike_axes, T: int, cs, out_shape):
     return x
 
 
+def cube_scatter_matrix(region_of_cube, R: int, dtype):
+    """[R, ncubes] 0/1 matrix whose row r marks the cubes of region r
+    (cubes without a region, -1, are in no row)."""
+    rows = torch.arange(R, dtype=region_of_cube.dtype, device=region_of_cube.device)
+    return (region_of_cube[None, :] == rows[:, None]).to(dtype)
+
+
 def _cube_scatter(vals, region_of_cube, R: int):
-    """Per-cube rows summed into their region slot -> [R, ...]."""
-    seg = torch.where(region_of_cube >= 0, region_of_cube, R).long()
-    out = torch.zeros((R + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype, device=vals.device)
-    return out.index_add(0, seg, vals)[:R]
+    """Per-cube rows summed into their region slot -> [R, ...].  A product
+    with ``cube_scatter_matrix`` rather than ``index_add``, whose CUDA
+    atomics sum in a different order on every run: this order is fixed,
+    so a step on the card is reproducible."""
+    out = cube_scatter_matrix(region_of_cube, R, vals.dtype) @ vals.reshape(vals.shape[0], -1)
+    return out.reshape((R,) + tuple(vals.shape[1:]))
 
 
 class _Accumulator:

@@ -1,7 +1,8 @@
 """Programmatic scene builders, the counterparts of
 ``polystokes_tpu.scenes.builders``: each is an analytic SDF configuration
 on the MAC grid.  All return ``(Grid, Scene)`` with every tensor on
-``device``; the domain is the unit cube."""
+``device``, the CUDA card unless the caller passes ``device="cpu"`` (with
+no card, torch raises); the domain is the unit cube."""
 from __future__ import annotations
 
 import dataclasses
@@ -39,7 +40,7 @@ def _gravity_velocity(grid: Grid, dtype, device, g=-9.8, dt=1 / 24, axis=2):
     return tuple(vel)
 
 
-def viscous_beam(n: int = 64, dtype=torch.float32, device="cpu", viscosity: float = 20.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
+def viscous_beam(n: int = 64, dtype=torch.float32, device="cuda", viscosity: float = 20.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
     """A horizontal beam of liquid clamped into a wall on the -x side."""
     grid = Grid(res=(n, n, n), dx=1.0 / n)
     beam = sdf.box((0.0, 0.35, 0.55), (0.8, 0.65, 0.8))
@@ -50,7 +51,7 @@ def viscous_beam(n: int = 64, dtype=torch.float32, device="cpu", viscosity: floa
     return grid, scene
 
 
-def honey_coil(n: int = 128, dtype=torch.float32, device="cpu", viscosity: float = 50.0, dt: float = 1 / 48) -> Tuple[Grid, Scene]:
+def honey_coil(n: int = 128, dtype=torch.float32, device="cuda", viscosity: float = 50.0, dt: float = 1 / 48) -> Tuple[Grid, Scene]:
     """A viscous column falling onto a pool: the 128^3 benchmark scene."""
     grid = Grid(res=(n, n, n), dx=1.0 / n)
     column = sdf.capsule((0.5, 0.5, 0.35), (0.5, 0.5, 0.95), 0.08)
@@ -62,7 +63,7 @@ def honey_coil(n: int = 128, dtype=torch.float32, device="cpu", viscosity: float
     return grid, scene
 
 
-def armadillo_melt(n: int = 96, dtype=torch.float32, device="cpu", viscosity: float = 10.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
+def armadillo_melt(n: int = 96, dtype=torch.float32, device="cuda", viscosity: float = 10.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
     """A blobby standing mass melting onto the floor."""
     grid = Grid(res=(n, n, n), dx=1.0 / n)
     body = sdf.union(
@@ -80,7 +81,7 @@ def armadillo_melt(n: int = 96, dtype=torch.float32, device="cpu", viscosity: fl
     return grid, scene
 
 
-def jelly_jam(n: int = 64, dtype=torch.float32, device="cpu", viscosity: float = 30.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
+def jelly_jam(n: int = 64, dtype=torch.float32, device="cuda", viscosity: float = 30.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
     """Viscous blobs inside a jar-shaped solid."""
     grid = Grid(res=(n, n, n), dx=1.0 / n)
     jar_outer = sdf.box((0.1, 0.1, 0.02), (0.9, 0.9, 0.9))
@@ -97,7 +98,7 @@ def jelly_jam(n: int = 64, dtype=torch.float32, device="cpu", viscosity: float =
     return grid, scene
 
 
-def jelly_jam_si(n: int = 64, dtype=torch.float32, device="cpu", viscosity: float = 400.0, density: float = 1000.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
+def jelly_jam_si(n: int = 64, dtype=torch.float32, device="cuda", viscosity: float = 400.0, density: float = 1000.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
     """jelly_jam at the reference scene file's SI parameters (viscosity
     400 kg/(m s), density 1000 kg/m^3, dt 1/24)."""
     grid, scene = jelly_jam(n=n, dtype=dtype, device=device, viscosity=viscosity, dt=dt)
@@ -105,14 +106,14 @@ def jelly_jam_si(n: int = 64, dtype=torch.float32, device="cpu", viscosity: floa
     return grid, dataclasses.replace(scene, density=density_field)
 
 
-def armadillo_melt_si(n: int = 256, dtype=torch.float32, device="cpu", viscosity: float = 400.0, density: float = 1000.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
+def armadillo_melt_si(n: int = 256, dtype=torch.float32, device="cuda", viscosity: float = 400.0, density: float = 1000.0, dt: float = 1 / 24) -> Tuple[Grid, Scene]:
     """armadillo_melt at the reference's SI parameter regime."""
     grid, scene = armadillo_melt(n=n, dtype=dtype, device=device, viscosity=viscosity, dt=dt)
     density_field = torch.full(grid.res, density, dtype=dtype, device=device)
     return grid, dataclasses.replace(scene, density=density_field)
 
 
-def conveyor_belt(n: int = 64, dtype=torch.float32, device="cpu", viscosity: float = 15.0, dt: float = 1 / 24, belt_speed: float = 0.5) -> Tuple[Grid, Scene]:
+def conveyor_belt(n: int = 64, dtype=torch.float32, device="cuda", viscosity: float = 15.0, dt: float = 1 / 24, belt_speed: float = 0.5) -> Tuple[Grid, Scene]:
     """Liquid blob resting on a moving solid belt."""
     grid = Grid(res=(n, n, n), dx=1.0 / n)
     blob = sdf.union(

@@ -23,17 +23,32 @@ def _require_cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _setup(dtype):
+def _setup(dtype, **kw):
     grid, scene = honey_coil(n=32, dtype=dtype, device="cuda")
-    params = SolverParams(dtype=dtype, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000)
+    params = SolverParams(dtype=dtype, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000, **kw)
     cls, asm = tsolver._setup(grid, scene, params)
     return grid, scene, params, cls, asm
+
+
+def _check_cases(cases, dtype):
+    """Each (name, kernel thunk, twin outputs): outputs within RTOL of the
+    twin's max, one launch of the kernel each."""
+    for name, kernel, refs in cases:
+        before = tpa.LAUNCHES[name]
+        got = kernel()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        refs = refs if isinstance(refs, tuple) else (refs,)
+        for g, r in zip(got, refs):
+            assert g.shape == r.shape, name
+            assert float((g - r).abs().max()) <= RTOL[dtype] * float(r.abs().max()), name
+        assert tpa.LAUNCHES[name] == before + 1, name
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_cuda_kernels_match_twins(dtype):
-    """Each kernel against its plain twin on the card, honey_coil 32^3, tile 16."""
+    """Each reduced-path kernel against its plain twin on the card, honey_coil 32^3, tile 16."""
     _require_cuda()
     grid, _, params, cls, asm = _setup(dtype)
     coeffs = tpa.pack_coeffs(asm, cls)
@@ -44,27 +59,46 @@ def test_cuda_kernels_match_twins(dtype):
     mom = tpa.moments_packed_plain(x, coeffs, T)
     v = algebra(mom)
     u = tpa.expand_packed_plain(v, red, T)
-    before = dict(tpa.LAUNCHES)
-    for name, got, ref in (
-        ("moments", tpa.moments_packed(x, coeffs, T), mom),
-        ("expand", tpa.expand_packed(v, red, T), u),
-        ("apply_reduced", tpa.apply_reduced_packed(x, coeffs, u), tpa.apply_reduced_packed_plain(x, coeffs, u)),
-    ):
-        torch.cuda.synchronize()
-        assert float((got - ref).abs().max()) <= RTOL[dtype] * float(ref.abs().max()), name
-        assert tpa.LAUNCHES[name] == before[name] + 1, name
+    out_grid, _, partials = tpa.grid_mom_pap_packed_plain(x, coeffs, T)
+    _check_cases((
+        ("moments", lambda: tpa.moments_packed(x, coeffs, T), mom),
+        ("expand", lambda: tpa.expand_packed(v, red, T), u),
+        ("apply_reduced", lambda: tpa.apply_reduced_packed(x, coeffs, u), tpa.apply_reduced_packed_plain(x, coeffs, u)),
+        ("grid_mom_pap", lambda: tpa.grid_mom_pap_packed(x, coeffs, T), (out_grid, mom, partials)),
+        ("finish", lambda: tpa.finish_packed(coeffs, out_grid, u), tpa.finish_packed_plain(coeffs, out_grid, u)),
+    ), dtype)
 
 
 @pytest.mark.cuda
-def test_cuda_step_matches_cpu():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cuda_uniform_kernels_match_twins(dtype):
+    """The uniform kernels against their twins on the 14-channel stack."""
+    _require_cuda()
+    grid, _, params, cls, asm = _setup(dtype, do_reduced_regions=False)
+    coeffs = tpa.pack_coeffs(asm)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn((7,) + grid.res, generator=gen, device="cuda", dtype=dtype)
+    x = (x * tpa.packed_masks(cls, dtype)).contiguous()
+    _check_cases((
+        ("apply_uniform", lambda: tpa.apply_uniform_packed(x, coeffs), tpa.apply_uniform_packed_plain(x, coeffs)),
+        ("apply_uniform_pap", lambda: tpa.apply_uniform_pap_packed(x, coeffs), tpa.apply_uniform_pap_packed_plain(x, coeffs)),
+    ), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduced, fuse_pap", [(True, True), (True, False), (False, True), (False, False)],
+                         ids=["reduced-fused", "reduced-unfused", "uniform-fused", "uniform-unfused"])
+def test_cuda_step_matches_cpu(reduced, fuse_pap):
     """The step on the card (kernels) against the CPU (twins), fp64 32^3."""
     _require_cuda()
-    params = SolverParams(dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000)
+    params = SolverParams(dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
+                          do_reduced_regions=reduced, fuse_pap=fuse_pap)
     out = {}
     for dev in ("cuda", "cpu"):
         grid, scene = honey_coil(n=32, dtype=torch.float64, device=dev)
         vel, _, stats = tsolver.step(grid, scene, params)
         assert stats["converged"] and stats["boundary_active"] == 0
+        assert (stats["n_regions"] >= 1) == reduced
         out[dev] = [v.cpu() for v in vel]
     scale = max(float(v.abs().max()) for v in out["cpu"])
     for a in range(3):

@@ -1,4 +1,5 @@
-"""The port's three packed-apply kernels against the JAX Pallas kernels.
+"""The port's three packed-apply kernels of the unfused reduced apply
+against the JAX Pallas kernels.
 
 On the CPU each wrapper of ``polystokes_tpu_torch.packed_apply`` runs its
 plain PyTorch twin; the JAX side runs the Pallas kernels as the JAX tests
@@ -149,10 +150,13 @@ def test_cpu_wrappers_count_no_launches(case):
     """On CPU tensors the wrappers run the twins: no kernel launch is counted."""
     before = dict(tpa.LAUNCHES)
     T = case["params"].tile_size
-    x, c = torch.from_numpy(case["x"]), torch.from_numpy(case["coeffs"])
+    x, c, u = torch.from_numpy(case["x"]), torch.from_numpy(case["coeffs"]), torch.from_numpy(case["u"])
     tpa.moments_packed(x, c, T)
     tpa.expand_packed(torch.from_numpy(case["v"]), torch.from_numpy(case["red"]), T)
-    tpa.apply_reduced_packed(x, c, torch.from_numpy(case["u"]))
+    tpa.apply_reduced_packed(x, c, u)
+    tpa.finish_packed(c, tpa.grid_mom_pap_packed(x, c, T)[0], u)
+    tpa.apply_uniform_packed(x, c)
+    tpa.apply_uniform_pap_packed(x, c)
     assert tpa.LAUNCHES == before
 
 

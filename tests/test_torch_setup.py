@@ -97,7 +97,7 @@ def case(request):
 @pytest.mark.parametrize("name", ["viscous_beam", "honey_coil", "armadillo_melt", "jelly_jam", "jelly_jam_si", "conveyor_belt"])
 def test_scene_arrays_equal(name):
     g_j, s_j = jbuilders.SCENES[name](n=16, dtype=jnp.float64)
-    g_t, s_t = tbuilders.SCENES[name](n=16, dtype=torch.float64)
+    g_t, s_t = tbuilders.SCENES[name](n=16, dtype=torch.float64, device="cpu")
     assert g_t == convert.grid_from_jax(g_j)
     for f in dataclasses.fields(s_t):
         a_t, a_j = getattr(s_t, f.name), getattr(s_j, f.name)

@@ -98,19 +98,39 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("field, value", [
-    ("do_tile", True), ("fuse_pap", True), ("coeff_bf16", True), ("fuse_update", True), ("deflation", True),
-    ("do_reduced_regions", False), ("use_pallas", False), ("bicgstab_fallback", True),
+    ("do_tile", True), ("cube_regions", False), ("coeff_bf16", True), ("fuse_update", True), ("deflation", True),
+    ("cc_host_callback", True), ("use_pallas", False), ("bicgstab_fallback", True),
 ])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SolverParams(**{field: value})
 
 
+@pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions"])
+@pytest.mark.parametrize("value", [True, False])
+def test_ported_options_construct(field, value):
+    assert getattr(SolverParams(**{field: value}), field) is value
+
+
+def test_fuse_pap_defaults_on_as_in_jax():
+    assert SolverParams().fuse_pap and JParams().fuse_pap
+
+
+def test_builders_default_to_the_card():
+    """Every scene builder puts its tensors on the card unless asked for the CPU."""
+    import inspect
+
+    from polystokes_tpu_torch.scenes.builders import SCENES, armadillo_melt_si
+
+    for fn in list(SCENES.values()) + [armadillo_melt_si]:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+
+
 def _boundary_liquid():
     """honey_coil 16^3 with liquid filling the whole domain box."""
     from polystokes_tpu_torch.scenes.builders import honey_coil
 
-    grid, scene = honey_coil(n=16, dtype=torch.float64)
+    grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
     scene = dataclasses.replace(scene, surface_sdf=torch.full(grid.res, -1.0, dtype=torch.float64))
     return grid, scene, SolverParams(dtype=torch.float64, tile_size=8, max_regions=64)
 
