@@ -9,7 +9,7 @@ Phases (any failed check exits non-zero before the final line):
      the torch / CUDA versions;
   1. build the kernels of polystokes_tpu_torch/csrc with nvcc (sm_90a, one
      nvcc per source, all started together);
-  2. each of the seven kernels against its plain PyTorch twin at the
+  2. each of the ten kernels against its plain PyTorch twin at the
      main-path shapes (honey_coil 128^3, tile 16, float32; the uniform
      kernels on the uniform setup's 14-channel stack): max |diff| <= 1e-5
      max |twin| on every output and on the summed <x, A x> partials, with
@@ -17,7 +17,9 @@ Phases (any failed check exits non-zero before the final line):
   3. the applies on the card: symmetry |<y, A x> - <A y, x>| <= 1e-5
      |<y, A x>| of the reduced and the uniform apply, and each fused
      apply_dot against (apply(x), <x, apply(x)>): A x within 1e-5 of max,
-     <x, A x> within 1e-5 relative;
+     <x, A x> within 1e-5 relative; combine(x, forward_s(x), u) against
+     apply_reduced(x, u) within 1e-5 of max; the REGION_ARROW solve's
+     symmetry |<y, M x> - <M y, x>| <= 1e-5 |<y, M x>|;
   4. Path A, the main path: step() with fuse_pap=True (the bench default)
      on honey_coil 128^3 (untiled cube regions, max_regions 64, CELL_ARROW,
      tol 1e-3), once to warm and twice timed: converged, error < 1e-3,
@@ -25,15 +27,21 @@ Phases (any failed check exits non-zero before the final line):
      in the two timed runs, and each kernel's launches as the CG's applies
      dictate (k iterations, 1 + k applies):
        moments 1, apply_reduced 1, expand applies, grid_mom_pap and finish
-       applies - 1, the uniform kernels 0;
-  5. the fuse_pap=False path at 128^3: moments, expand and apply_reduced
+       applies - 1, the others 0;
+  5. Path A with REGION_ARROW at 128^3, the same checks and the setup
+     seconds of its factors: moments applies + 1, expand 2 applies,
+     apply_reduced 1, grid_mom_pap and finish applies - 1, transpose_u
+     applies, the others 0;
+  6. the fuse_pap=False path at 128^3: moments, expand and apply_reduced
      once per apply, the others 0;
-  6. Path B, the uniform baseline (do_reduced_regions=False) at 128^3 with
+  7. Path B, the uniform baseline (do_reduced_regions=False) at 128^3 with
      fuse_pap=True (apply_uniform 1, apply_uniform_pap applies - 1) and
      fuse_pap=False (apply_uniform once per apply); no reduced kernel;
-  7. Path A on the card against the port on the CPU at 32^3, float32,
+  8. Path A on the card against the port on the CPU at 32^3, float32,
      tol 1e-5: both converge, velocities within 2e-4 max |v|.
 Every launch count is read from counters set to 0 just before that run.
+forward_s and combine (kernels 12 and 13) have no caller in either
+package: they are checked in phases 2 and 3 and run on no path.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -67,9 +75,15 @@ KERNELS = {
     "finish": ("fused_apply.cu", f"{PA}:817", 17, 7, 37),
     "apply_uniform_pap": ("fused_apply.cu", f"{PA}:797", 21, 7, 98),
     "apply_uniform": ("fused_apply.cu", f"{PA}:502", 21, 7, 84),
+    "transpose_u": ("transpose_apply.cu", f"{PA}:720", 10, 7, 51),
+    "forward_s": ("transpose_apply.cu", f"{PA}:520", 14, 3, 42),
+    "combine": ("transpose_apply.cu", f"{PA}:536", 26, 7, 78),
 }
+# the path whose launches the kernel table reports; None: no caller in
+# either package, so no path runs the kernel
 MAIN_PATH = {"moments": "A", "expand": "A", "apply_reduced": "A", "grid_mom_pap": "A", "finish": "A",
-             "apply_uniform_pap": "B_fused", "apply_uniform": "B_fused"}
+             "apply_uniform_pap": "B_fused", "apply_uniform": "B_fused", "transpose_u": "A_region",
+             "forward_s": None, "combine": None}
 
 
 def fail(msg: str) -> None:
@@ -124,6 +138,10 @@ def expected_launches(path, applies):
     counts = dict.fromkeys(KERNELS, 0)
     if path == "A":
         counts.update(moments=1, apply_reduced=1, expand=applies, grid_mom_pap=applies - 1, finish=applies - 1)
+    elif path == "A_region":
+        # each apply's solve adds moments, expand and transpose_u
+        counts.update(moments=applies + 1, apply_reduced=1, expand=2 * applies, grid_mom_pap=applies - 1,
+                      finish=applies - 1, transpose_u=applies)
     elif path == "unfused":
         counts.update(moments=applies, expand=applies, apply_reduced=applies)
     elif path == "B_fused":
@@ -164,7 +182,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
 
     from polystokes_tpu_torch import packed_apply as pa
-    from polystokes_tpu_torch import solver
+    from polystokes_tpu_torch import PreconditionerType, solver
     from polystokes_tpu_torch.classify import effective_max_regions
     from polystokes_tpu_torch.scenes.builders import honey_coil
 
@@ -198,6 +216,7 @@ def main() -> None:
     v = algebra(mom_twin)
     u_twin = pa.expand_packed_plain(v, red, TILE)
     out_grid = pa.grid_mom_pap_packed_plain(xp, coeffs, TILE)[0]
+    s_twin = pa.forward_s_packed_plain(xp, coeffs)
     plane = xp[0].numel()
     mom_bytes = mom_twin.numel() * mom_twin.element_size()
     cases = {
@@ -214,6 +233,11 @@ def main() -> None:
                               lambda: pa.apply_uniform_pap_packed_plain(xu, coeffs_u), 0),
         "apply_uniform": (lambda: pa.apply_uniform_packed(xu, coeffs_u),
                           lambda: pa.apply_uniform_packed_plain(xu, coeffs_u), 0),
+        "transpose_u": (lambda: pa.transpose_u_packed(coeffs, u_twin),
+                        lambda: pa.transpose_u_packed_plain(coeffs, u_twin), 0),
+        "forward_s": (lambda: pa.forward_s_packed(xp, coeffs), lambda: pa.forward_s_packed_plain(xp, coeffs), 0),
+        "combine": (lambda: pa.combine_packed(xp, coeffs, s_twin, u_twin),
+                    lambda: pa.combine_packed_plain(xp, coeffs, s_twin, u_twin), 0),
     }
     table = {}
     for name, (kernel, twin, small_bytes) in cases.items():
@@ -252,8 +276,27 @@ def main() -> None:
               f"unfused {pap_u:.9e} rel {d_pap:.3e}", flush=True)
         if not (d_ax <= KERNEL_RTOL and d_pap <= PAP_RTOL):
             fail(f"{label} fused apply_dot disagrees with the unfused apply: {d_ax}, {d_pap}")
+    ar = pa.apply_reduced_packed(xp, coeffs, u_twin)
+    d_comb = float((pa.combine_packed(xp, coeffs, pa.forward_s_packed(xp, coeffs), u_twin) - ar).abs().max())
+    print(f"phase 3 combine(forward_s(x)) against apply_reduced: max|diff| {d_comb:.3e} max {float(ar.abs().max()):.3e}",
+          flush=True)
+    if not d_comb <= KERNEL_RTOL * float(ar.abs().max()):
+        fail(f"combine(x, forward_s(x), u) disagrees with apply_reduced(x, u): {d_comb}")
+    p_r = p_a.replace(preconditioner=PreconditionerType.REGION_ARROW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    factors_r = solver.precond_factors_packed(grid, cls, asm, p_r)
+    torch.cuda.synchronize()
+    print(f"phase 3 REGION_ARROW factors {N_MAIN}^3: {time.perf_counter() - t0:.3f} s", flush=True)
+    m_r = solver.make_preconditioner_packed(grid, cls, asm, p_r, factors_r)
+    y_mx = float((yp.double() * m_r(xp).double()).sum())
+    my_x = float((m_r(yp).double() * xp.double()).sum())
+    asym = abs(y_mx - my_x) / abs(y_mx)
+    print(f"phase 3 REGION_ARROW solve symmetry: <y,Mx> {y_mx:.9e} <My,x> {my_x:.9e} rel {asym:.3e}", flush=True)
+    if not asym <= SYM_RTOL:
+        fail(f"the REGION_ARROW solve is not symmetric: {asym} > {SYM_RTOL}")
 
-    # -- phases 4-6: the paths, each with its own launch counts
+    # -- phases 4-7: the paths, each with its own launch counts
     def drive(label, p, n_check=None):
         pa.reset_launches()
         torch.cuda.synchronize()
@@ -295,17 +338,49 @@ def main() -> None:
     if not same:
         fail("two Path A steps on the same inputs differ")
 
-    _, st, launches = drive(f"phase 5 fuse_pap=False {N_MAIN}^3", p_a.replace(fuse_pap=False), lambda n: n >= 1)
-    check_launches("unfused", "phase 5", st, launches)
+    drive(f"phase 5 REGION_ARROW {N_MAIN}^3 warm", p_r, lambda n: n >= 1)
+    vel1, sr1, l1 = drive(f"phase 5 REGION_ARROW {N_MAIN}^3 timed 1", p_r, lambda n: n >= 1)
+    vel2, sr2, l2 = drive(f"phase 5 REGION_ARROW {N_MAIN}^3 timed 2", p_r, lambda n: n >= 1)
+    check_launches("A_region", "phase 5 REGION_ARROW", sr1, l1)
+    check_launches("A_region", "phase 5 REGION_ARROW", sr2, l2)
+    same = sr1["iterations"] == sr2["iterations"] and all(torch.equal(a, b) for a, b in zip(vel1, vel2))
+    print(f"phase 5 reproducible: iterations {sr1['iterations']} and {sr2['iterations']}, "
+          f"velocities bit-equal {all(torch.equal(a, b) for a, b in zip(vel1, vel2))}", flush=True)
+    if not same:
+        fail("two REGION_ARROW steps on the same inputs differ")
+    # the step's setup, timed apart from it: weights, classify and assemble;
+    # the factors of each preconditioner (REGION_ARROW's include the D probes
+    # of region_schur_inv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cls_s, asm_s = solver._setup(grid, scene, p_r)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    fac_s = {}
+    for label, p in (("CELL_ARROW", p_a), ("REGION_ARROW", p_r)):
+        t0 = time.perf_counter()
+        solver.precond_factors_packed(grid, cls_s, asm_s, p)
+        torch.cuda.synchronize()
+        fac_s[label] = time.perf_counter() - t0
+    print(f"phase 5 setup seconds: weights, classify, assemble {t_setup:.3f}; factors CELL_ARROW "
+          f"{fac_s['CELL_ARROW']:.3f}, REGION_ARROW {fac_s['REGION_ARROW']:.3f}; iterations REGION_ARROW "
+          f"{sr1['iterations']} against Path A's CELL_ARROW {st1['iterations']}", flush=True)
+
+    _, st, launches = drive(f"phase 6 fuse_pap=False {N_MAIN}^3", p_a.replace(fuse_pap=False), lambda n: n >= 1)
+    check_launches("unfused", "phase 6", st, launches)
     for fuse, path in ((True, "B_fused"), (False, "B_unfused")):
-        _, st, launches = drive(f"phase 6 Path B fuse_pap={fuse} {N_MAIN}^3", p_b.replace(fuse_pap=fuse), lambda n: n == 0)
-        check_launches(path, f"phase 6 {path}", st, launches)
+        _, st, launches = drive(f"phase 7 Path B fuse_pap={fuse} {N_MAIN}^3", p_b.replace(fuse_pap=fuse), lambda n: n == 0)
+        check_launches(path, f"phase 7 {path}", st, launches)
     for name, entry in table.items():
+        if MAIN_PATH[name] is None:
+            entry["launches"] = 0
+            print(f"{name}: no caller in either package, run on no path (checked in phases 2 and 3)", flush=True)
+            continue
         entry["launches"] = entry["launches_by_path"].get(MAIN_PATH[name], 0)
         if entry["launches"] <= 0:
             fail(f"{name} was not launched on its path {MAIN_PATH[name]}")
 
-    # -- phase 7: Path A on the card against the CPU port at 32^3
+    # -- phase 8: Path A on the card against the CPU port at 32^3
     p32 = params(torch.float32, 1e-5, 12000, fuse_pap=True)
     results = {}
     for where in ("cuda", "cpu"):
@@ -313,14 +388,14 @@ def main() -> None:
         t0 = time.perf_counter()
         v32, _, st32 = solver.step(g32, s32, p32)
         results[where] = ([c.double().cpu() for c in v32], st32)
-        print(f"phase 7 {where} {N_CPU}^3: {time.perf_counter() - t0:.2f} s, iterations {st32['iterations']}, "
+        print(f"phase 8 {where} {N_CPU}^3: {time.perf_counter() - t0:.2f} s, iterations {st32['iterations']}, "
               f"error {st32['error']:.3e}, converged {st32['converged']}", flush=True)
         if not st32["converged"]:
             fail(f"{N_CPU}^3 step on {where} did not converge")
     v_gpu, v_cpu = results["cuda"][0], results["cpu"][0]
     vmax = max(float(c.abs().max()) for c in v_cpu)
     dv = max(float((a - b).abs().max()) for a, b in zip(v_gpu, v_cpu))
-    print(f"phase 7 velocities: max|dv| {dv:.3e} max|v| {vmax:.3e} rel {dv / vmax:.3e}", flush=True)
+    print(f"phase 8 velocities: max|dv| {dv:.3e} max|v| {vmax:.3e} rel {dv / vmax:.3e}", flush=True)
     if not dv <= VEL_ATOL * vmax:
         fail(f"card and CPU velocities differ: {dv} > {VEL_ATOL} * {vmax}")
 

@@ -3,7 +3,7 @@
 The same schema as ``polystokes_tpu.config``: the enums, the reference
 constants and one frozen ``SolverParams`` with every field, the dtype as a
 torch dtype.  The port implements these families on the packed kernel
-path with CELL_ARROW preconditioned CG:
+path with CELL_ARROW or REGION_ARROW preconditioned CG:
 
 * the untiled cube-region reduced step (``do_reduced_regions=True``,
   ``do_tile=False``, ``cube_regions=True``);
@@ -65,24 +65,25 @@ class BasisOrder(enum.Enum):
 MINWEIGHT = 0.1
 NSAMPLES = 2
 
-# (field, supported value, ROADMAP.md item that ports the other values)
+# (field, supported values, ROADMAP.md item that ports the other values)
 _UNSUPPORTED = (
-    ("do_tile", False, "Queue 1 item 11 (tiled mode)"),
-    ("cube_regions", True, "Queue 1 item 6 (segmented general regions)"),
-    ("basis", BasisOrder.QUADRATIC, "Queue 1 item 11 (affine basis)"),
-    ("cc_host_callback", False, "Queue 1 item 3 (host connected components)"),
-    ("matrix_scheme", MatrixScheme.PRESSURE_STRESS, "Queue 1 item 13 (host explicit schemes)"),
-    ("solver_type", SolverType.PCG_MATRIX_VECTOR_PRODUCTS, "Queue 1 item 11 (other solvers)"),
-    ("preconditioner", PreconditionerType.CELL_ARROW, "Queue 1 items 11 and 15 (other preconditioners)"),
-    ("bicgstab_fallback", False, "Queue 1 item 11 (BiCGStab fallback)"),
-    ("deflation", False, "Queue 1 item 15 (deflation)"),
-    ("fuse_update", False, "Queue 2 rows 9-11 (fused CG update)"),
-    ("coeff_bf16", False, "Queue 1 item 15 (bf16 coefficients)"),
-    ("use_pallas", True, "Queue 1 item 7 (the unpacked apply)"),
-    ("device_warm_start", False, "Queue 1 item 11 (device warm start)"),
-    ("export_matrices", False, "Queue 1 item 13 (export)"),
-    ("export_component_matrices", False, "Queue 1 item 13 (export)"),
-    ("export_stats", False, "Queue 1 item 13 (export)"),
+    ("do_tile", (False,), "Queue 1 item 11 (tiled mode)"),
+    ("cube_regions", (True,), "Queue 1 item 6 (segmented general regions)"),
+    ("basis", (BasisOrder.QUADRATIC,), "Queue 1 item 11 (affine basis)"),
+    ("cc_host_callback", (False,), "Queue 1 item 3 (host connected components)"),
+    ("matrix_scheme", (MatrixScheme.PRESSURE_STRESS,), "Queue 1 item 13 (host explicit schemes)"),
+    ("solver_type", (SolverType.PCG_MATRIX_VECTOR_PRODUCTS,), "Queue 1 item 11 (other solvers)"),
+    ("preconditioner", (PreconditionerType.CELL_ARROW, PreconditionerType.REGION_ARROW),
+     "Queue 1 items 11 and 15 (the other preconditioners)"),
+    ("bicgstab_fallback", (False,), "Queue 1 item 11 (BiCGStab fallback)"),
+    ("deflation", (False,), "Queue 1 item 15 (deflation)"),
+    ("fuse_update", (False,), "Queue 2 rows 9-11 (fused CG update)"),
+    ("coeff_bf16", (False,), "Queue 1 item 15 (bf16 coefficients)"),
+    ("use_pallas", (True,), "Queue 1 item 7 (the unpacked apply)"),
+    ("device_warm_start", (False,), "Queue 1 item 11 (device warm start)"),
+    ("export_matrices", (False,), "Queue 1 item 13 (export)"),
+    ("export_component_matrices", (False,), "Queue 1 item 13 (export)"),
+    ("export_stats", (False,), "Queue 1 item 13 (export)"),
 )
 
 
@@ -167,10 +168,10 @@ class SolverParams:
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {self.dtype}")
         for name, supported, item in _UNSUPPORTED:
-            if getattr(self, name) != supported:
+            if getattr(self, name) not in supported:
                 raise NotImplementedError(
                     f"SolverParams.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(only {supported!r}); see ROADMAP.md {item}"
+                    f"(only {' or '.join(repr(v) for v in supported)}); see ROADMAP.md {item}"
                 )
 
     def replace(self, **kw) -> "SolverParams":

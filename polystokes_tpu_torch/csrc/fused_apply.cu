@@ -96,7 +96,7 @@ finish_kernel(const T* __restrict__ c, const T* __restrict__ out_grid, const T* 
   if (q >= d.plane) return;
   const int k = (int)(q % d.nz), j = (int)((q / d.nz) % d.ny), i = (int)(q / ((long long)d.nz * d.ny));
 
-  auto wf = [&](int a, int ii, int jj, int kk) { return face_w_u(c, u, a, ii, jj, kk, d); };
+  auto wf = [&](int a, int ii, int jj, int kk) { return face_w_u(c, u, T(-1), a, ii, jj, kk, d); };
   T w0[3], o[7];
 #pragma unroll
   for (int a = 0; a < 3; ++a) w0[a] = wf(a, i, j, k);

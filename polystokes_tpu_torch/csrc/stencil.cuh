@@ -1,7 +1,8 @@
 // Device functions shared by the packed-apply kernels (packed_apply.cu,
-// fused_apply.cu): zero-filled loads in the packed slot layout, the
-// forward stencil s_a, the face values w_a the transpose spreads, the
-// transpose itself, the quadratic monomials and a thread-block sum.
+// fused_apply.cu, transpose_apply.cu): zero-filled loads in the packed slot
+// layout, the forward stencil s_a, the face values w_a the transpose
+// spreads, the transpose itself, the quadratic monomials and a thread-block
+// sum.
 //
 // Packed layout (see polystokes_tpu_torch/packed_apply.py): every field is
 // a channel of a contiguous [C, nx, ny, nz] array, z fastest.  Solve
@@ -81,16 +82,30 @@ __device__ __forceinline__ T forward_s(const T* __restrict__ x, const T* __restr
   return __ldg(c + (C_FFW + a) * d.plane + d.at(i, j, k)) * v;
 }
 
-// The face value the transpose spreads: w_a = ffw_a * (-dtMcInv_a * s_a - u_a).
-// The transpose carries its own ffw factor (G^T has G's face weight,
-// polystokes_tpu/operators.py transpose_from_faces); 0 outside the grid.
+// The face value the transpose spreads: w_a = ffw_a * (-dtMcInv_a * s_a - u_a)
+// from s_a and u_a at slot q.  The transpose carries its own ffw factor (G^T
+// has G's face weight, polystokes_tpu/operators.py transpose_from_faces).
+template <typename T>
+__device__ __forceinline__ T w_from_s_u(const T* __restrict__ c, int a, long long q, const Dims& d, T s, T u) {
+  const T f = -__ldg(c + (C_DTMCINV + a) * d.plane + q) * s - u;
+  return __ldg(c + (C_FFW + a) * d.plane + q) * f;
+}
+
+// w_a with s_a computed from x; 0 outside the grid.
 template <typename T>
 __device__ __forceinline__ T face_w(const T* __restrict__ x, const T* __restrict__ c, const T* __restrict__ u, int a, int i, int j, int k, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
   const long long q = d.at(i, j, k);
-  const T s = forward_s(x, c, a, i, j, k, d);
-  const T f = -__ldg(c + (C_DTMCINV + a) * d.plane + q) * s - __ldg(u + a * d.plane + q);
-  return __ldg(c + (C_FFW + a) * d.plane + q) * f;
+  return w_from_s_u(c, a, q, d, forward_s(x, c, a, i, j, k, d), __ldg(u + a * d.plane + q));
+}
+
+// w_a with s_a read from a stored forward pass (combine_kernel); 0 outside
+// the grid.
+template <typename T>
+__device__ __forceinline__ T face_w_stored(const T* __restrict__ c, const T* __restrict__ s, const T* __restrict__ u, int a, int i, int j, int k, const Dims& d) {
+  if (!d.inside(i, j, k)) return T(0);
+  const long long q = d.at(i, j, k);
+  return w_from_s_u(c, a, q, d, __ldg(s + a * d.plane + q), __ldg(u + a * d.plane + q));
 }
 
 // The grid branch's face value w_a = ffw_a * (-dtMcInv_a * s_a): face_w
@@ -106,14 +121,15 @@ __device__ __forceinline__ T face_w_grid(const T* __restrict__ x, const T* __res
   return grid_w_from_s(c, a, d.at(i, j, k), d, forward_s(x, c, a, i, j, k, d));
 }
 
-// The reduced branch's face value w_a = ffw_a * (-u_a) (_transpose_contrib
-// of polystokes_tpu/pallas_apply.py on w = -u, its own ffw factor kept:
-// dropping it is wrong at solid-cut faces).
+// The face value w_a = ffw_a * (sign * u_a) of u alone (_transpose_contrib
+// of polystokes_tpu/pallas_apply.py, its own ffw factor kept: dropping it is
+// wrong at solid-cut faces).  sign -1: the apply's reduced branch -u
+// (finish); +1: the REGION_ARROW solve's transpose of u (transpose_u).
 template <typename T>
-__device__ __forceinline__ T face_w_u(const T* __restrict__ c, const T* __restrict__ u, int a, int i, int j, int k, const Dims& d) {
+__device__ __forceinline__ T face_w_u(const T* __restrict__ c, const T* __restrict__ u, T sign, int a, int i, int j, int k, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
   const long long q = d.at(i, j, k);
-  return __ldg(c + (C_FFW + a) * d.plane + q) * -__ldg(u + a * d.plane + q);
+  return __ldg(c + (C_FFW + a) * d.plane + q) * (sign * __ldg(u + a * d.plane + q));
 }
 
 // The 7 outputs of the transpose [G Dt]^T at slot (i, j, k), without mass

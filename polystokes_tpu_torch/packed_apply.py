@@ -34,7 +34,11 @@ into ``build/polystokes_tpu_torch/`` on first use and loaded with ctypes:
   reduced apply (``csrc/packed_apply.cu``);
 * ``grid_mom_pap_packed``, ``finish_packed``: the fused reduced apply that
   also returns <x, A x> (``fuse_pap``); ``apply_uniform_packed``,
-  ``apply_uniform_pap_packed``: the uniform apply (``csrc/fused_apply.cu``).
+  ``apply_uniform_pap_packed``: the uniform apply (``csrc/fused_apply.cu``);
+* ``transpose_u_packed``: [G Dt]^T u, the transpose leg of the
+  REGION_ARROW solve; ``forward_s_packed``, ``combine_packed``: the
+  forward and combine halves of ``apply_reduced_packed``
+  (``csrc/transpose_apply.cu``).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper.
 """
@@ -67,7 +71,7 @@ K = 10  # quadratic monomials per axis
 PAP_BLOCK = 256  # slots per <x, A x> partial of apply_uniform_pap (the kernel's thread block)
 
 LAUNCHES = {name: 0 for name in ("moments", "expand", "apply_reduced", "grid_mom_pap", "finish", "apply_uniform",
-                                 "apply_uniform_pap")}
+                                 "apply_uniform_pap", "transpose_u", "forward_s", "combine")}
 
 
 def reset_launches() -> None:
@@ -250,6 +254,21 @@ def apply_uniform_packed_plain(xp, coeffs):
     return _transpose_out(xp, coeffs, _grid_w(coeffs, _forward_s(xp, coeffs)))
 
 
+def transpose_u_packed_plain(coeffs, up):
+    """[G Dt]^T u: positive sign, no mass terms, no grid branch."""
+    return _transpose_contrib(coeffs, [up[a] for a in range(3)])
+
+
+def forward_s_packed_plain(xp, coeffs):
+    """s = [G Dt] x on all faces: [3, nx, ny, nz]."""
+    return torch.stack(_forward_s(xp, coeffs), dim=0)
+
+
+def combine_packed_plain(xp, coeffs, sp, up):
+    """[G Dt]^T (-dt McInv s - u) with the mass terms: [7, nx, ny, nz]."""
+    return _transpose_out(xp, coeffs, [wg - up[a] for a, wg in enumerate(_grid_w(coeffs, sp))])
+
+
 def apply_uniform_pap_packed_plain(xp, coeffs):
     """(A x, partials): the uniform A x and the partials of <x, A x> over
     runs of PAP_BLOCK consecutive slots."""
@@ -270,7 +289,8 @@ _LIB = None
 # (entry point, pointer arguments, int arguments) of each kernel; every
 # entry point also takes the stream and exists for f32 and f64
 _SIGNATURES = (("moments", 3, 4), ("expand", 3, 4), ("apply_reduced", 4, 3), ("grid_mom_pap", 5, 4),
-               ("finish", 4, 3), ("apply_uniform", 3, 3), ("apply_uniform_pap", 4, 3))
+               ("finish", 4, 3), ("apply_uniform", 3, 3), ("apply_uniform_pap", 4, 3), ("transpose_u", 3, 3),
+               ("forward_s", 3, 3), ("combine", 5, 3))
 
 
 def _nvcc() -> str:
@@ -434,9 +454,10 @@ def finish_packed(coeffs, out_grid, up):
     return out
 
 
-def _uniform_stack(name, coeffs):
-    """The channel count of a coefficient stack the uniform kernels take:
-    the 14-channel uniform stack or the 17-channel one (they read 0-13)."""
+def _coeff_channels(name, coeffs):
+    """The channel count of a coefficient stack for a kernel that reads no
+    reduced-face mask: the 14-channel uniform stack or the 17-channel one
+    (such kernels read channels 0-13 at most)."""
     n = coeffs.shape[0]
     if n not in (N_COEFF_UNIFORM, N_COEFF):
         raise ValueError(f"{name}: expected {N_COEFF_UNIFORM} or {N_COEFF} coefficient channels, got {n}")
@@ -446,7 +467,7 @@ def _uniform_stack(name, coeffs):
 def apply_uniform_packed(xp, coeffs):
     """[7, nx, ny, nz] = the uniform A x."""
     res = tuple(xp.shape[1:])
-    n = _uniform_stack("apply_uniform_packed", coeffs)
+    n = _coeff_channels("apply_uniform_packed", coeffs)
     dev = _check("apply_uniform_packed", (xp, coeffs), ((7,) + res, (n,) + res))
     if dev == "cpu":
         return apply_uniform_packed_plain(xp, coeffs)
@@ -459,7 +480,7 @@ def apply_uniform_pap_packed(xp, coeffs):
     """(A x [7, nx, ny, nz], partials): the uniform A x and the partials of
     <x, A x>, one per PAP_BLOCK consecutive slots."""
     res = tuple(xp.shape[1:])
-    n = _uniform_stack("apply_uniform_pap_packed", coeffs)
+    n = _coeff_channels("apply_uniform_pap_packed", coeffs)
     dev = _check("apply_uniform_pap_packed", (xp, coeffs), ((7,) + res, (n,) + res))
     if dev == "cpu":
         return apply_uniform_pap_packed_plain(xp, coeffs)
@@ -467,3 +488,41 @@ def apply_uniform_pap_packed(xp, coeffs):
     partials = torch.empty((-(-xp[0].numel() // PAP_BLOCK),), dtype=xp.dtype, device=xp.device)
     _launch("apply_uniform_pap", (xp, coeffs, out, partials), res, xp.dtype)
     return out, partials
+
+
+def transpose_u_packed(coeffs, up):
+    """[7, nx, ny, nz] = [G Dt]^T u on face values u [3, nx, ny, nz]: no
+    mass terms, no grid branch (the REGION_ARROW solve's transpose leg)."""
+    res = tuple(up.shape[1:])
+    n = _coeff_channels("transpose_u_packed", coeffs)
+    dev = _check("transpose_u_packed", (coeffs, up), ((n,) + res, (3,) + res))
+    if dev == "cpu":
+        return transpose_u_packed_plain(coeffs, up)
+    out = torch.empty((7,) + res, dtype=up.dtype, device=up.device)
+    _launch("transpose_u", (coeffs, up, out), res, up.dtype)
+    return out
+
+
+def forward_s_packed(xp, coeffs):
+    """[3, nx, ny, nz] = [G Dt] x on all faces (slot space)."""
+    res = tuple(xp.shape[1:])
+    n = _coeff_channels("forward_s_packed", coeffs)
+    dev = _check("forward_s_packed", (xp, coeffs), ((7,) + res, (n,) + res))
+    if dev == "cpu":
+        return forward_s_packed_plain(xp, coeffs)
+    s = torch.empty((3,) + res, dtype=xp.dtype, device=xp.device)
+    _launch("forward_s", (xp, coeffs, s), res, xp.dtype)
+    return s
+
+
+def combine_packed(xp, coeffs, sp, up):
+    """[7, nx, ny, nz] = [G Dt]^T (-dt McInv s - u) minus the mass terms,
+    from the forward values s and the expanded u."""
+    res = tuple(xp.shape[1:])
+    n = _coeff_channels("combine_packed", coeffs)
+    dev = _check("combine_packed", (xp, coeffs, sp, up), ((7,) + res, (n,) + res, (3,) + res, (3,) + res))
+    if dev == "cpu":
+        return combine_packed_plain(xp, coeffs, sp, up)
+    out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
+    _launch("combine", (xp, coeffs, sp, up, out), res, xp.dtype)
+    return out

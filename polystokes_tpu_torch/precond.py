@@ -1,4 +1,4 @@
-"""The CELL_ARROW preconditioner factors (``polystokes_tpu.precond``).
+"""The CELL_ARROW and REGION_ARROW preconditioners (``polystokes_tpu.precond``).
 
 Per cell, the exact 4x4 restriction of -A to (p, tau_xx, tau_yy, tau_zz)
 is the arrow matrix
@@ -11,6 +11,14 @@ is the arrow matrix
 k_a = sum over the cell's two a-faces of coeff^2 * (dt McInv + q_red),
 h = 0.5 uInv.  It inverts in closed form through the scalar Schur
 complement s = sum_a k_a h / (k_a + h); edge stresses get scalar Jacobi.
+
+REGION_ARROW adds the exact per-region boundary part of J^T BInv J to
+the arrow block M0 (which then leaves the reduced quadratic form out) and
+applies it through the Woodbury identity
+
+    M^-1 r = y - M0^-1 U^T S^-1 U y,   y = M0^-1 r,   U = J chi F,
+
+with the per-region capacitance S = B + U M0^-1 U^T (``region_schur_inv``).
 """
 from __future__ import annotations
 
@@ -19,8 +27,16 @@ import torch
 from .basis import monomial_matrix, monomials_xyz, n_monomials
 from .classify import REDUCED
 from .config import SolverParams
-from .operators import Assembled, coeff_fields, face_at_cell, scatter_face_to_edge
-from .reduced import _face_offset_grids, block_broadcast
+from .operators import (
+    Assembled,
+    PTau,
+    coeff_fields,
+    face_at_cell,
+    forward_face_values,
+    scatter_face_to_edge,
+    transpose_from_faces,
+)
+from .reduced import _face_offset_grids, block_broadcast, expand_J, reduce_J
 
 
 def _diag_quadratic_form(grid, cls, asm, params, a):
@@ -47,16 +63,17 @@ def _diag_quadratic_form(grid, cls, asm, params, a):
     return torch.where(red, q, 0.0)
 
 
-def _axis_cell_k_and_edge_diag(grid, cls, asm: Assembled, params: SolverParams):
+def _axis_cell_k_and_edge_diag(grid, cls, asm: Assembled, params: SolverParams, include_reduced_q: bool = True):
     """Per-axis cell coefficients k_a and the edge-stress diagonals (the
     halves of |diag(A)| without the uInv mass terms); the reduced quadratic
-    form enters only when there are regions."""
+    form enters only when there are regions and ``include_reduced_q`` (off
+    under REGION_ARROW, whose Woodbury block holds that term exactly)."""
     k = []
     te_d = [torch.zeros_like(asm.uinv_e[e]) for e in range(3)]
     for a in range(3):
         c_lo, c_hi, erow = coeff_fields(asm, a)
         wgt = asm.dt * asm.mc_inv[a]
-        if params.do_reduced_regions:
+        if params.do_reduced_regions and include_reduced_q:
             wgt = wgt + _diag_quadratic_form(grid, cls, asm, params, a)
         # the cell's lower face carries the c_hi coefficient, upper face c_lo
         k.append(face_at_cell(c_hi**2 * wgt, a, 0) + face_at_cell(c_lo**2 * wgt, a, 1))
@@ -69,9 +86,9 @@ def _safe_inv(x):
     return torch.where(x > 0, 1.0 / torch.where(x > 0, x, 1.0), 0.0)
 
 
-def cell_arrow_factors(grid, cls, asm: Assembled, params: SolverParams):
+def cell_arrow_factors(grid, cls, asm: Assembled, params: SolverParams, include_reduced_q: bool = True):
     """The arrow-block inverse factors (k, inv_d, kd, inv_schur, te_inv)."""
-    k, te_d = _axis_cell_k_and_edge_diag(grid, cls, asm, params)
+    k, te_d = _axis_cell_k_and_edge_diag(grid, cls, asm, params, include_reduced_q)
     h = 0.5 * asm.uinv_c
     inv_d = [_safe_inv(k[a] + h) for a in range(3)]
     schur = sum(k[a] * h * inv_d[a] for a in range(3))
@@ -79,3 +96,38 @@ def cell_arrow_factors(grid, cls, asm: Assembled, params: SolverParams):
     kd = [k[a] * inv_d[a] for a in range(3)]
     te_inv = tuple(_safe_inv(te_d[e] + 0.5 * asm.uinv_e[e]) for e in range(3))
     return k, inv_d, kd, inv_schur, te_inv
+
+
+def _arrow_solve_from(k, inv_d, kd, inv_schur, te_inv):
+    """The arrow solve M0^-1 on PTau values, from ``cell_arrow_factors``."""
+
+    def solve(r: PTau) -> PTau:
+        z_p = (r.p + sum(kd[a] * r.tc[a] for a in range(3))) * inv_schur
+        z_tc = tuple((r.tc[a] + k[a] * z_p) * inv_d[a] for a in range(3))
+        z_te = tuple(r.te[e] * te_inv[e] for e in range(3))
+        return PTau(p=z_p, tc=z_tc, te=z_te)
+
+    return solve
+
+
+def region_schur_inv(grid, cls, asm: Assembled, params: SolverParams, R: int, arrow_solve):
+    """inv(S), S_r = B_r + (U M0^-1 U^T)_rr per region, 0 on invalid regions.
+
+    Column d of U M0^-1 U^T for every region at once is
+    reduce_J(F M0^-1 F^T chi J^T e_d): the regions' stencil footprints are
+    disjoint (the boundary separation of classify), so the capacitance is
+    block-diagonal per region.  D probes, a Python loop over the full grid;
+    then C is symmetrised and S inverted by Cholesky, as ``finalize_reduced``
+    inverts B."""
+    D = params.reduced_dof
+    eye = torch.eye(D, dtype=params.dtype, device=asm.dt.device)
+    cols = []
+    for d in range(D):
+        u = expand_J(grid, cls, asm.com, eye[d].expand(R, D), params)  # chi J^T e_d
+        s = forward_face_values(asm, arrow_solve(transpose_from_faces(asm, u)))  # F M0^-1 F^T
+        cols.append(reduce_J(grid, cls, asm.com, s, params, R))  # J chi
+    C = torch.stack(cols, dim=-1)  # [R, D, D], column d from probe d
+    C = 0.5 * (C + C.transpose(1, 2))
+    valid = asm.region_valid[:, None, None]
+    S = torch.where(valid, asm.mr / asm.dt + 2.0 * asm.vr + C, eye)
+    return torch.where(valid, torch.cholesky_inverse(torch.linalg.cholesky(S)), 0.0)

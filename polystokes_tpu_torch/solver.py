@@ -21,7 +21,7 @@ import torch
 from . import krylov
 from .basis import monomial_matrix, monomial_shift_matrix, n_monomials
 from .classify import REDUCED, SOLID, UNSOLVED, Classification, classify, effective_max_regions, is_active
-from .config import MINWEIGHT, SolverParams
+from .config import MINWEIGHT, PreconditionerType, SolverParams
 from .grid import EDGE_OFFSET_AXES, Grid
 from .operators import (
     Assembled,
@@ -47,9 +47,10 @@ from .packed_apply import (
     pack_coeffs,
     pack_ptau,
     reduced_face_masks,
+    transpose_u_packed,
     unpack_ptau,
 )
-from .precond import cell_arrow_factors
+from .precond import _arrow_solve_from, cell_arrow_factors, region_schur_inv
 from .reduced import ReducedData, build_reduced, cube_scatter_matrix, expand_J, finalize_reduced, reduce_J
 from .weights import compute_weights
 
@@ -193,10 +194,11 @@ def assemble(grid: Grid, scene: Scene, cls: Classification, liquid_w, fluid_w, p
 # The packed Schur operator (ApplyPressureStressMatrix.h:102-179)
 # ---------------------------------------------------------------------------
 
-def _region_algebra_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int):
+def _region_algebra_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int, matrix=None):
     """The per-cube region algebra between the moments and expand kernels:
     mom [cs0, cs1, 3K, cs2] -> v [cs0, cs1, 3K, cs2], the cube-origin
-    polynomial coefficients of BInv (J x); plus the reduced-face mask stack.
+    polynomial coefficients of ``matrix`` (J x), per region, BInv by
+    default (REGION_ARROW passes inv(S)); plus the reduced-face mask stack.
     The shift S(com - origin) turns the kernels' origin moments into
     COM-relative ones here, so the kernels never see the COM."""
     dtype = params.dtype
@@ -216,12 +218,13 @@ def _region_algebra_packed(grid: Grid, cls: Classification, asm: Assembled, para
     cube_ok = (roc >= 0).to(dtype)
     scatter = cube_scatter_matrix(roc, R, dtype)  # the deterministic region sums of reduced._cube_scatter
     red_packed = torch.stack([_face_to_slot(m.to(dtype), a) for a, m in enumerate(reduced_face_masks(cls))], dim=0).contiguous()
+    mtx = asm.binv if matrix is None else matrix
 
     def algebra(mom):
         m = mom.permute(0, 1, 3, 2).reshape(-1, 3, K)
         m_rel = torch.einsum("ckj,caj->cak", S, m)
         y = sum(m_rel[:, a, :] @ A_mats[a].T for a in range(3))  # [nc, D]
-        w = torch.einsum("rij,rj->ri", asm.binv, scatter @ y)
+        w = torch.einsum("rij,rj->ri", mtx, scatter @ y)
         w_cube = w[safe_cube] * cube_ok[:, None]
         v_com = torch.stack([w_cube @ A_mats[a] for a in range(3)], dim=1)  # [nc, 3, K]
         v_origin = torch.einsum("ckj,cak->caj", S, v_com)
@@ -279,14 +282,25 @@ def make_apply_packed_pap(grid: Grid, cls: Classification, asm: Assembled, param
 
 
 def precond_factors_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams):
-    """Loop-invariant CELL_ARROW factor fields in the packed layout."""
-    k, inv_d, kd, inv_schur, te_inv = cell_arrow_factors(grid, cls, asm, params)
-    return dict(k=list(k), inv_d=list(inv_d), kd=list(kd), inv_schur=inv_schur,
-                te_inv_s=[_edge_to_slot(te_inv[e], e) for e in range(3)])
+    """Loop-invariant arrow factor fields in the packed layout; under
+    REGION_ARROW with regions also ``sinv``, the per-region inverse
+    capacitance, and the arrow block without the reduced quadratic form.
+    The uniform step has no regions and takes the plain arrow factors."""
+    region = params.preconditioner == PreconditionerType.REGION_ARROW and params.do_reduced_regions
+    fac = cell_arrow_factors(grid, cls, asm, params, include_reduced_q=not region)
+    k, inv_d, kd, inv_schur, te_inv = fac
+    out = dict(k=list(k), inv_d=list(inv_d), kd=list(kd), inv_schur=inv_schur,
+               te_inv_s=[_edge_to_slot(te_inv[e], e) for e in range(3)])
+    if region:
+        out["sinv"] = region_schur_inv(grid, cls, asm, params, asm.binv.shape[0], _arrow_solve_from(*fac))
+    return out
 
 
 def make_preconditioner_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, factors=None):
-    """The packed CELL_ARROW solve (closed-form per-cell arrow inverse)."""
+    """The packed arrow solve (closed-form per-cell arrow inverse) and,
+    when ``factors`` hold ``sinv``, REGION_ARROW's Woodbury correction
+    z = y - M0^-1 F^T chi J^T S^-1 J chi F y, y = M0^-1 r: the moments and
+    expand kernels of the apply and the transpose_u kernel."""
     if factors is None:
         factors = precond_factors_packed(grid, cls, asm, params)
     k, inv_d, kd = factors["k"], factors["inv_d"], factors["kd"]
@@ -298,7 +312,18 @@ def make_preconditioner_packed(grid: Grid, cls: Classification, asm: Assembled, 
         z_te = [rp[4 + e] * te_inv_s[e] for e in range(3)]
         return torch.stack([z_p] + z_tc + z_te, dim=0)
 
-    return solve_arrow
+    if "sinv" not in factors:
+        return solve_arrow
+    T = params.tile_size
+    coeffs = pack_coeffs(asm, cls)
+    algebra, red_packed = _region_algebra_packed(grid, cls, asm, params, asm.binv.shape[0], matrix=factors["sinv"])
+
+    def solve_region(rp):
+        y = solve_arrow(rp)
+        up = expand_packed(algebra(moments_packed(y, coeffs, T)), red_packed, T)
+        return y - solve_arrow(transpose_u_packed(coeffs, up))
+
+    return solve_region
 
 
 def build_rhs(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int) -> PTau:

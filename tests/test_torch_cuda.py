@@ -8,10 +8,12 @@ import pytest
 import torch
 
 from polystokes_tpu_torch import packed_apply as tpa
+from polystokes_tpu_torch import sdf
 from polystokes_tpu_torch import solver as tsolver
-from polystokes_tpu_torch.classify import effective_max_regions
-from polystokes_tpu_torch.config import SolverParams
-from polystokes_tpu_torch.scenes.builders import honey_coil
+from polystokes_tpu_torch.classify import effective_max_regions, is_active
+from polystokes_tpu_torch.config import PreconditionerType, SolverParams
+from polystokes_tpu_torch.grid import Grid
+from polystokes_tpu_torch.scenes.builders import _base, honey_coil
 
 T = 16
 # f32: sums of up to 4096 terms in another order than the twin; fp64 likewise
@@ -99,6 +101,60 @@ def test_cuda_step_matches_cpu(reduced, fuse_pap):
         vel, _, stats = tsolver.step(grid, scene, params)
         assert stats["converged"] and stats["boundary_active"] == 0
         assert (stats["n_regions"] >= 1) == reduced
+        out[dev] = [v.cpu() for v in vel]
+    scale = max(float(v.abs().max()) for v in out["cpu"])
+    for a in range(3):
+        assert float((out["cuda"][a] - out["cpu"][a]).abs().max()) <= 2e-4 * scale
+
+
+def _solid_setup(dtype):
+    """The solid-cut floor of the JAX tests' _solid_case at 32^3 on the
+    card: a liquid box on a tilted floor that cuts faces of every family."""
+    grid = Grid(res=(32, 32, 32), dx=1.0 / 32)
+    scene = _base(grid, sdf.box((0.1, 0.1, 0.1), (0.9, 0.9, 0.9)), sdf.plane((0.15, 0.1, 1.0), 0.23), dtype, "cuda",
+                  dt=1 / 48, viscosity=50.0)
+    params = SolverParams(dtype=dtype, tile_size=T, max_regions=64)
+    cls, asm = tsolver._setup(grid, scene, params)
+    cut = sum(int((is_active(cls.face_labels[a]) & (asm.ffw[a] > 0) & (asm.ffw[a] < 1)).sum()) for a in range(3))
+    assert cut > 0 and int(cls.n_regions) >= 1
+    return grid, params, cls, asm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cuda_transpose_kernels_match_twins(dtype):
+    """transpose_u, forward_s and combine against their twins on the card,
+    on the solid-cut floor at 32^3, tile 16."""
+    _require_cuda()
+    grid, params, cls, asm = _solid_setup(dtype)
+    coeffs = tpa.pack_coeffs(asm, cls)
+    algebra, red = tsolver._region_algebra_packed(grid, cls, asm, params, effective_max_regions(grid, params))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((7,) + grid.res, generator=gen, device="cuda", dtype=dtype)
+    x = (x * tpa.packed_masks(cls, dtype)).contiguous()
+    u = tpa.expand_packed_plain(algebra(tpa.moments_packed_plain(x, coeffs, T)), red, T)
+    s = tpa.forward_s_packed_plain(x, coeffs)
+    _check_cases((
+        ("transpose_u", lambda: tpa.transpose_u_packed(coeffs, u), tpa.transpose_u_packed_plain(coeffs, u)),
+        ("forward_s", lambda: tpa.forward_s_packed(x, coeffs), s),
+        ("combine", lambda: tpa.combine_packed(x, coeffs, s, u), tpa.combine_packed_plain(x, coeffs, s, u)),
+    ), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_region_arrow_step_matches_cpu():
+    """The REGION_ARROW step (fuse_pap on) on the card against the CPU, fp64 32^3."""
+    _require_cuda()
+    params = SolverParams(dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
+                          preconditioner=PreconditionerType.REGION_ARROW)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        grid, scene = honey_coil(n=32, dtype=torch.float64, device=dev)
+        tpa.reset_launches()
+        vel, _, stats = tsolver.step(grid, scene, params)
+        assert stats["converged"] and stats["boundary_active"] == 0 and stats["n_regions"] >= 1
+        if dev == "cuda":
+            assert tpa.LAUNCHES["transpose_u"] == stats["operator_applies"]
         out[dev] = [v.cpu() for v in vel]
     scale = max(float(v.abs().max()) for v in out["cpu"])
     for a in range(3):
