@@ -9,11 +9,15 @@ Phases (any failed check exits non-zero before the final line):
      the torch / CUDA versions;
   1. build the kernels of polystokes_tpu_torch/csrc with nvcc (sm_90a, one
      nvcc per source, all started together);
-  2. each of the ten kernels against its plain PyTorch twin at the
+  2. each of the thirteen kernels against its plain PyTorch twin at the
      main-path shapes (honey_coil 128^3, tile 16, float32; the uniform
      kernels on the uniform setup's 14-channel stack): max |diff| <= 1e-5
-     max |twin| on every output and on the summed <x, A x> partials, with
-     median times over 20 launches and the HBM bound;
+     max |twin| on every output, on the summed <x, A x> partials and on the
+     three dots of the update kernels, with median times over 20 launches
+     and the HBM bound.  The update kernels run on the real CELL_ARROW
+     (kind arrow) and DIAGONAL (kind diag) factors: cg_update with every
+     kind, finish_update and exp_finish_update with arrow and none; the
+     kernel table reports kind arrow, the kind of every path below;
   3. the applies on the card: symmetry |<y, A x> - <A y, x>| <= 1e-5
      |<y, A x>| of the reduced and the uniform apply, and each fused
      apply_dot against (apply(x), <x, apply(x)>): A x within 1e-5 of max,
@@ -25,25 +29,36 @@ Phases (any failed check exits non-zero before the final line):
      tol 1e-3), once to warm and twice timed: converged, error < 1e-3,
      boundary_active == 0, equal iteration counts and bit-equal velocities
      in the two timed runs, and each kernel's launches as the CG's applies
-     dictate (k iterations, 1 + k applies):
-       moments 1, apply_reduced 1, expand applies, grid_mom_pap and finish
-       applies - 1, the others 0;
+     dictate (k iterations, a = 1 + k applies):
+       moments 1, apply_reduced 1, expand a, grid_mom_pap and finish a - 1,
+       the others 0;
   5. Path A with REGION_ARROW at 128^3, the same checks and the setup
-     seconds of its factors: moments applies + 1, expand 2 applies,
-     apply_reduced 1, grid_mom_pap and finish applies - 1, transpose_u
-     applies, the others 0;
+     seconds of its factors: moments a + 1, expand 2a, apply_reduced 1,
+     grid_mom_pap and finish a - 1, transpose_u a, the others 0;
   6. the fuse_pap=False path at 128^3: moments, expand and apply_reduced
      once per apply, the others 0;
   7. Path B, the uniform baseline (do_reduced_regions=False) at 128^3 with
-     fuse_pap=True (apply_uniform 1, apply_uniform_pap applies - 1) and
+     fuse_pap=True (apply_uniform 1, apply_uniform_pap a - 1) and
      fuse_pap=False (apply_uniform once per apply); no reduced kernel;
-  8. Path A on the card against the port on the CPU at 32^3, float32,
-     tol 1e-5: both converge, velocities within 2e-4 max |v|.
+  8. Path F, fuse_update with fuse_expand (CELL_ARROW) at 128^3, warm and
+     twice timed with phase 4's checks: moments, expand and apply_reduced 1
+     (pcg_init), grid_mom_pap and exp_finish_update a - 1, the others 0
+     (finish among them); its ms per apply beside Path A's;
+  9. at 128^3, once each: F' (fuse_expand off): moments and apply_reduced
+     1, expand a, grid_mom_pap and finish_update a - 1; B_u (the uniform
+     step with fuse_update): apply_uniform 1, apply_uniform_pap and
+     cg_update a - 1; REGION_ARROW with fuse_update, which has no fused
+     update in either package: phase 5's counts, no update kernel;
+ 10. Path A on the card against the port on the CPU at 32^3, float32,
+     tol 1e-5: both converge, velocities within 2e-4 max |v|;
+ 11. at 32^3 on the card, tol 1e-5: IDENTITY and DIAGONAL with fuse_update
+     against the same step without it, and Path F on the card against the
+     CPU: all converge, velocities within 2e-4 max |v|.
 Every launch count is read from counters set to 0 just before that run.
 forward_s and combine (kernels 12 and 13) have no caller in either
 package: they are checked in phases 2 and 3 and run on no path.
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}.
+The kernel table is printed as JSON two lines before the last, then the
+nvidia-smi line of the card; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -78,12 +93,20 @@ KERNELS = {
     "transpose_u": ("transpose_apply.cu", f"{PA}:720", 10, 7, 51),
     "forward_s": ("transpose_apply.cu", f"{PA}:520", 14, 3, 42),
     "combine": ("transpose_apply.cu", f"{PA}:536", 26, 7, 78),
+    # the update kernels with CELL_ARROW's 13 factor channels, the kind of
+    # every path this script drives; DIAGONAL reads 7, IDENTITY none
+    # (UPDATE_FACTORS)
+    "cg_update": ("update_apply.cu", f"{PA}:1253", 41, 21, 89),
+    "finish_update": ("update_apply.cu", f"{PA}:897", 51, 21, 133),
+    "exp_finish_update": ("update_apply.cu", f"{PA}:1091", 51, 21, 469),
 }
+UPDATE_FACTORS = {"arrow": 13, "diag": 7, "none": 0}
 # the path whose launches the kernel table reports; None: no caller in
 # either package, so no path runs the kernel
 MAIN_PATH = {"moments": "A", "expand": "A", "apply_reduced": "A", "grid_mom_pap": "A", "finish": "A",
              "apply_uniform_pap": "B_fused", "apply_uniform": "B_fused", "transpose_u": "A_region",
-             "forward_s": None, "combine": None}
+             "forward_s": None, "combine": None, "cg_update": "B_u", "finish_update": "F_prime",
+             "exp_finish_update": "F"}
 
 
 def fail(msg: str) -> None:
@@ -124,11 +147,14 @@ def median_ms(fn, n=20):
     return statistics.median(times)
 
 
-def bound(name, plane, small_bytes, itemsize):
+def bound(name, plane, small_bytes, itemsize, kind="arrow"):
     """(ms, 'bytes' or 'operations'): the larger of the HBM time of the
     channels the kernel must read and write once (plus its small per-cube
-    arrays) and the float32 time of its flops."""
+    arrays) and the float32 time of its flops; an update kernel reads the
+    factor channels of its preconditioner kind."""
     _, _, read, written, flops = KERNELS[name]
+    if name in ("cg_update", "finish_update", "exp_finish_update"):
+        read += UPDATE_FACTORS[kind] - UPDATE_FACTORS["arrow"]
     t_bytes = ((read + written) * plane * itemsize + small_bytes) / HBM_BYTES_PER_S
     t_ops = flops * plane / F32_FLOPS_PER_S
     return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
@@ -144,6 +170,13 @@ def expected_launches(path, applies):
                       finish=applies - 1, transpose_u=applies)
     elif path == "unfused":
         counts.update(moments=applies, expand=applies, apply_reduced=applies)
+    elif path == "F":
+        # the update kernel expands and finishes: expand only in pcg_init
+        counts.update(moments=1, apply_reduced=1, expand=1, grid_mom_pap=applies - 1, exp_finish_update=applies - 1)
+    elif path == "F_prime":
+        counts.update(moments=1, apply_reduced=1, expand=applies, grid_mom_pap=applies - 1, finish_update=applies - 1)
+    elif path == "B_u":
+        counts.update(apply_uniform=1, apply_uniform_pap=applies - 1, cg_update=applies - 1)
     elif path == "B_fused":
         counts.update(apply_uniform=1, apply_uniform_pap=applies - 1)
     else:
@@ -239,20 +272,57 @@ def main() -> None:
         "combine": (lambda: pa.combine_packed(xp, coeffs, s_twin, u_twin),
                     lambda: pa.combine_packed_plain(xp, coeffs, s_twin, u_twin), 0),
     }
-    table = {}
-    for name, (kernel, twin, small_bytes) in cases.items():
+    def measure(name, kernel, twin, small_bytes, kind=None):
+        """Compare a kernel with its twin, time both and reckon its bound."""
+        label = name if kind is None else f"{name} kind {kind}"
         got, ref = kernel(), twin()
         torch.cuda.synchronize()
-        err = compare(name, got, ref)
+        err = compare(label, got, ref)
         ms_twin = median_ms(twin)
         ms_kernel = median_ms(kernel)
-        bound_ms, bound_by = bound(name, plane, small_bytes, xp.element_size())
-        print(f"phase 2 {name}: kernel {ms_kernel:.4f} ms twin {ms_twin:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
+        bound_ms, bound_by = bound(name, plane, small_bytes, xp.element_size(), kind or "arrow")
+        print(f"phase 2 {label}: kernel {ms_kernel:.4f} ms twin {ms_twin:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
               f"{100 * bound_ms / ms_kernel:.1f} % of the bound", flush=True)
+        return {"max_abs_err": err, "ms": ms_kernel, "plain_ms": ms_twin, "bound_ms": bound_ms, "bound_by": bound_by}
+
+    table = {}
+    for name, (kernel, twin, small_bytes) in cases.items():
         src, replaces = KERNELS[name][:2]
         table[name] = {"name": name, "route": "cuda", "source": f"polystokes_tpu_torch/csrc/{src}", "replaces": replaces,
-                       "launches": None, "max_abs_err": err, "ms": ms_kernel, "plain_ms": ms_twin,
-                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "launches_by_path": {}}
+                       "launches": None, **measure(name, kernel, twin, small_bytes), "library_ms": None,
+                       "launches_by_path": {}}
+
+    # the update kernels: kernel 9 with every preconditioner kind, 10 and 11
+    # with arrow and none, on the real CELL_ARROW and DIAGONAL factors; the
+    # table's numbers are the arrow kind's, the kind of every path driven
+    gen_u = torch.Generator(device=dev).manual_seed(1)
+    rp, pp = ((torch.randn((7,) + grid.res, generator=gen_u, device=dev) * mask).contiguous() for _ in range(2))
+    alpha = torch.tensor(0.37, device=dev)
+    factors = {"arrow": pa.pack_arrow_factors(solver.precond_factors_packed(grid, cls, asm, p_a)),
+               "diag": solver.precond_factors_packed(grid, cls, asm, p_a.replace(
+                   preconditioner=PreconditionerType.DIAGONAL))["inv_packed"],
+               "none": None}
+    for kind, f in factors.items():
+        runs = [("cg_update", lambda f=f, k=kind: pa.cg_update_packed(xp, rp, pp, out_grid, alpha, f, k),
+                 lambda f=f, k=kind: pa.cg_update_packed_plain(xp, rp, pp, out_grid, alpha, f, k), 0)]
+        if kind != "diag":
+            runs += [
+                ("finish_update", lambda f=f, k=kind: pa.finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, u_twin, f, k),
+                 lambda f=f, k=kind: pa.finish_update_packed_plain(xp, rp, pp, alpha, coeffs, out_grid, u_twin, f, k), 0),
+                ("exp_finish_update",
+                 lambda f=f, k=kind: pa.exp_finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, v, TILE, f, k),
+                 lambda f=f, k=kind: pa.exp_finish_update_packed_plain(xp, rp, pp, alpha, coeffs, out_grid, v, TILE, f, k),
+                 mom_bytes),
+            ]
+        for name, kernel, twin, small_bytes in runs:
+            m = measure(name, kernel, twin, small_bytes, kind)
+            if name not in table:
+                src, replaces = KERNELS[name][:2]
+                table[name] = {"name": name, "route": "cuda", "source": f"polystokes_tpu_torch/csrc/{src}",
+                               "replaces": replaces, "launches": None, **m, "library_ms": None,
+                               "launches_by_path": {}, "kinds": {}}
+            table[name]["kinds"][kind] = m
+    del rp, pp, factors
 
     # -- phase 3: the applies on the card
     yp = (torch.randn((7,) + grid.res, generator=gen, device=dev) * mask).contiguous()
@@ -316,15 +386,23 @@ def main() -> None:
             fail(f"{label}: unexpected region count {stats['n_regions']}")
         if not all(bool(torch.isfinite(c).all()) for c in vel):
             fail(f"{label}: non-finite velocities")
+        stats["ms_per_apply"] = 1e3 * seconds / max(applies, 1)
         return vel, stats, launches
 
-    def check_launches(path, label, stats, launches):
+    def check_launches(path, label, stats, launches, record=True):
         want = expected_launches(path, stats["operator_applies"])
         if launches != want:
             fail(f"{label}: launches {launches}, expected {want}")
         for name, n in launches.items():
-            if n:
+            if n and record:
                 table[name]["launches_by_path"][path] = n
+
+    def check_repeat(label, vel1, st1, vel2, st2):
+        bit_equal = all(torch.equal(a, b) for a, b in zip(vel1, vel2))
+        print(f"{label} reproducible: iterations {st1['iterations']} and {st2['iterations']}, "
+              f"velocities bit-equal {bit_equal}", flush=True)
+        if not (st1["iterations"] == st2["iterations"] and bit_equal):
+            fail(f"{label}: two steps on the same inputs differ")
 
     solver.check_pallas(grid, scene, p_a)
     drive(f"phase 4 Path A {N_MAIN}^3 warm", p_a, lambda n: n >= 1)
@@ -332,22 +410,14 @@ def main() -> None:
     vel2, st2, l2 = drive(f"phase 4 Path A {N_MAIN}^3 timed 2", p_a, lambda n: n >= 1)
     check_launches("A", "phase 4 Path A", st1, l1)
     check_launches("A", "phase 4 Path A", st2, l2)
-    same = st1["iterations"] == st2["iterations"] and all(torch.equal(a, b) for a, b in zip(vel1, vel2))
-    print(f"phase 4 reproducible: iterations {st1['iterations']} and {st2['iterations']}, "
-          f"velocities bit-equal {all(torch.equal(a, b) for a, b in zip(vel1, vel2))}", flush=True)
-    if not same:
-        fail("two Path A steps on the same inputs differ")
+    check_repeat("phase 4 Path A", vel1, st1, vel2, st2)
 
     drive(f"phase 5 REGION_ARROW {N_MAIN}^3 warm", p_r, lambda n: n >= 1)
     vel1, sr1, l1 = drive(f"phase 5 REGION_ARROW {N_MAIN}^3 timed 1", p_r, lambda n: n >= 1)
     vel2, sr2, l2 = drive(f"phase 5 REGION_ARROW {N_MAIN}^3 timed 2", p_r, lambda n: n >= 1)
     check_launches("A_region", "phase 5 REGION_ARROW", sr1, l1)
     check_launches("A_region", "phase 5 REGION_ARROW", sr2, l2)
-    same = sr1["iterations"] == sr2["iterations"] and all(torch.equal(a, b) for a, b in zip(vel1, vel2))
-    print(f"phase 5 reproducible: iterations {sr1['iterations']} and {sr2['iterations']}, "
-          f"velocities bit-equal {all(torch.equal(a, b) for a, b in zip(vel1, vel2))}", flush=True)
-    if not same:
-        fail("two REGION_ARROW steps on the same inputs differ")
+    check_repeat("phase 5 REGION_ARROW", vel1, sr1, vel2, sr2)
     # the step's setup, timed apart from it: weights, classify and assemble;
     # the factors of each preconditioner (REGION_ARROW's include the D probes
     # of region_schur_inv)
@@ -371,6 +441,32 @@ def main() -> None:
     for fuse, path in ((True, "B_fused"), (False, "B_unfused")):
         _, st, launches = drive(f"phase 7 Path B fuse_pap={fuse} {N_MAIN}^3", p_b.replace(fuse_pap=fuse), lambda n: n == 0)
         check_launches(path, f"phase 7 {path}", st, launches)
+
+    # -- phase 8: Path F, fuse_update with fuse_expand: the update kernel
+    # expands, finishes and updates in one pass
+    p_f = p_a.replace(fuse_update=True)
+    drive(f"phase 8 Path F {N_MAIN}^3 warm", p_f, lambda n: n >= 1)
+    vel1, sf1, l1 = drive(f"phase 8 Path F {N_MAIN}^3 timed 1", p_f, lambda n: n >= 1)
+    vel2, sf2, l2 = drive(f"phase 8 Path F {N_MAIN}^3 timed 2", p_f, lambda n: n >= 1)
+    check_launches("F", "phase 8 Path F", sf1, l1)
+    check_launches("F", "phase 8 Path F", sf2, l2)
+    check_repeat("phase 8 Path F", vel1, sf1, vel2, sf2)
+    print(f"phase 8 ms per apply (first reading, not a claim): Path F {sf1['ms_per_apply']:.4f} and "
+          f"{sf2['ms_per_apply']:.4f}, Path A {st1['ms_per_apply']:.4f} and {st2['ms_per_apply']:.4f}; iterations "
+          f"F {sf1['iterations']}, A {st1['iterations']}", flush=True)
+
+    # -- phase 9: F' (fuse_expand off: the update finishes a stored u), B_u
+    # (the uniform step's update), and REGION_ARROW with fuse_update, which
+    # has no fused update in either package: phase 5's launches, none of an
+    # update kernel
+    _, st, launches = drive(f"phase 9 Path F' {N_MAIN}^3", p_f.replace(fuse_expand=False), lambda n: n >= 1)
+    check_launches("F_prime", "phase 9 Path F'", st, launches)
+    _, st, launches = drive(f"phase 9 Path B_u {N_MAIN}^3", p_b.replace(fuse_update=True), lambda n: n == 0)
+    check_launches("B_u", "phase 9 Path B_u", st, launches)
+    _, st, launches = drive(f"phase 9 REGION_ARROW fuse_update=True {N_MAIN}^3", p_r.replace(fuse_update=True),
+                            lambda n: n >= 1)
+    check_launches("A_region", "phase 9 REGION_ARROW fuse_update=True", st, launches, record=False)
+
     for name, entry in table.items():
         if MAIN_PATH[name] is None:
             entry["launches"] = 0
@@ -380,24 +476,40 @@ def main() -> None:
         if entry["launches"] <= 0:
             fail(f"{name} was not launched on its path {MAIN_PATH[name]}")
 
-    # -- phase 8: Path A on the card against the CPU port at 32^3
-    p32 = params(torch.float32, 1e-5, 12000, fuse_pap=True)
-    results = {}
-    for where in ("cuda", "cpu"):
+    def step_32(where, p):
         g32, s32 = honey_coil(n=N_CPU, dtype=torch.float32, device=where)
         t0 = time.perf_counter()
-        v32, _, st32 = solver.step(g32, s32, p32)
-        results[where] = ([c.double().cpu() for c in v32], st32)
-        print(f"phase 8 {where} {N_CPU}^3: {time.perf_counter() - t0:.2f} s, iterations {st32['iterations']}, "
-              f"error {st32['error']:.3e}, converged {st32['converged']}", flush=True)
+        v32, _, st32 = solver.step(g32, s32, p)
+        print(f"  {where} {N_CPU}^3 {p.preconditioner.name} fuse_pap={p.fuse_pap} fuse_update={p.fuse_update}: "
+              f"{time.perf_counter() - t0:.2f} s, iterations {st32['iterations']}, error {st32['error']:.3e}, "
+              f"converged {st32['converged']}", flush=True)
         if not st32["converged"]:
-            fail(f"{N_CPU}^3 step on {where} did not converge")
-    v_gpu, v_cpu = results["cuda"][0], results["cpu"][0]
-    vmax = max(float(c.abs().max()) for c in v_cpu)
-    dv = max(float((a - b).abs().max()) for a, b in zip(v_gpu, v_cpu))
-    print(f"phase 8 velocities: max|dv| {dv:.3e} max|v| {vmax:.3e} rel {dv / vmax:.3e}", flush=True)
-    if not dv <= VEL_ATOL * vmax:
-        fail(f"card and CPU velocities differ: {dv} > {VEL_ATOL} * {vmax}")
+            fail(f"{N_CPU}^3 step on {where} did not converge: {p}")
+        return [c.double().cpu() for c in v32]
+
+    def agree(label, v_a, v_b):
+        vmax = max(float(c.abs().max()) for c in v_b)
+        dv = max(float((a - b).abs().max()) for a, b in zip(v_a, v_b))
+        print(f"{label}: max|dv| {dv:.3e} max|v| {vmax:.3e} rel {dv / vmax:.3e}", flush=True)
+        if not dv <= VEL_ATOL * vmax:
+            fail(f"{label}: velocities differ: {dv} > {VEL_ATOL} * {vmax}")
+
+    # -- phase 10: Path A on the card against the CPU port at 32^3
+    p32 = params(torch.float32, 1e-5, 12000, fuse_pap=True)
+    print(f"phase 10 Path A {N_CPU}^3, card and CPU:", flush=True)
+    agree("phase 10 velocities, card against CPU", step_32("cuda", p32), step_32("cpu", p32))
+
+    # -- phase 11: at 32^3 on the card, IDENTITY and DIAGONAL with the fused
+    # update against the unfused loop (identity-PCG needs thousands of
+    # iterations at 128^3), and Path F on the card against the CPU
+    for pc in (PreconditionerType.IDENTITY, PreconditionerType.DIAGONAL):
+        p = p32.replace(preconditioner=pc)
+        print(f"phase 11 {pc.name} {N_CPU}^3, fuse_update on and off:", flush=True)
+        agree(f"phase 11 {pc.name} fuse_update on against off", step_32("cuda", p.replace(fuse_update=True)),
+              step_32("cuda", p))
+    print(f"phase 11 Path F {N_CPU}^3, card and CPU:", flush=True)
+    p32f = p32.replace(fuse_update=True)
+    agree("phase 11 Path F velocities, card against CPU", step_32("cuda", p32f), step_32("cpu", p32f))
 
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi's own "name, power.limit" line

@@ -3,7 +3,8 @@
 The same schema as ``polystokes_tpu.config``: the enums, the reference
 constants and one frozen ``SolverParams`` with every field, the dtype as a
 torch dtype.  The port implements these families on the packed kernel
-path with CELL_ARROW or REGION_ARROW preconditioned CG:
+path with CELL_ARROW, REGION_ARROW, DIAGONAL or IDENTITY preconditioned
+CG:
 
 * the untiled cube-region reduced step (``do_reduced_regions=True``,
   ``do_tile=False``, ``cube_regions=True``);
@@ -11,7 +12,9 @@ path with CELL_ARROW or REGION_ARROW preconditioned CG:
   reduced step is measured against;
 
 each with ``fuse_pap`` on (the fused apply that also returns <p, A p>,
-the JAX default) or off.  A field set to a value outside these families
+the JAX default) or off, and ``fuse_update`` (the fused CG update, with
+``fuse_expand`` choosing the kernel that expands the region polynomials in
+place) on or off.  A field set to a value outside these families
 raises ``NotImplementedError`` naming the ROADMAP.md item that ports it;
 nothing is ignored silently.  Where the JAX default lies outside them
 (``do_tile``, ``preconditioner``, ``bicgstab_fallback``, ``use_pallas``)
@@ -73,11 +76,10 @@ _UNSUPPORTED = (
     ("cc_host_callback", (False,), "Queue 1 item 3 (host connected components)"),
     ("matrix_scheme", (MatrixScheme.PRESSURE_STRESS,), "Queue 1 item 13 (host explicit schemes)"),
     ("solver_type", (SolverType.PCG_MATRIX_VECTOR_PRODUCTS,), "Queue 1 item 11 (other solvers)"),
-    ("preconditioner", (PreconditionerType.CELL_ARROW, PreconditionerType.REGION_ARROW),
-     "Queue 1 items 11 and 15 (the other preconditioners)"),
+    ("preconditioner", (PreconditionerType.CELL_ARROW, PreconditionerType.REGION_ARROW, PreconditionerType.DIAGONAL,
+                        PreconditionerType.IDENTITY), "Queue 1 item 15 (multigrid)"),
     ("bicgstab_fallback", (False,), "Queue 1 item 11 (BiCGStab fallback)"),
     ("deflation", (False,), "Queue 1 item 15 (deflation)"),
-    ("fuse_update", (False,), "Queue 2 rows 9-11 (fused CG update)"),
     ("coeff_bf16", (False,), "Queue 1 item 15 (bf16 coefficients)"),
     ("use_pallas", (True,), "Queue 1 item 7 (the unpacked apply)"),
     ("device_warm_start", (False,), "Queue 1 item 11 (device warm start)"),
@@ -91,9 +93,10 @@ _UNSUPPORTED = (
 class SolverParams:
     """All solver knobs of ``polystokes_tpu.config.SolverParams``.
 
-    ``use_warm_start`` feeds only the host EIGEN path, ``fuse_expand`` acts
-    only under ``fuse_update`` and the ``mg_*`` knobs only under MULTIGRID,
-    exactly as in the JAX package; each of those switches raises above."""
+    ``use_warm_start`` feeds only the host EIGEN path and the ``mg_*``
+    knobs only under MULTIGRID, exactly as in the JAX package; each of those
+    switches raises above.  ``fuse_expand`` acts only under ``fuse_update``
+    on the reduced step."""
 
     # -- discretization / solve control
     tolerance: float = 1e-3

@@ -18,7 +18,8 @@
 //   the region polynomials on reduced faces, u_a = chi_a sum_k v[cube, aK+k]
 //   m_k(p - origin).  Bound: memory, an elementwise pass (3 channels read,
 //   3 written; the small v array stays in cache).  Design: one thread per
-//   (axis, slot), z fastest.
+//   (axis, slot), z fastest, on stencil.cuh expand_at, the polynomial that
+//   exp_finish_update_kernel (update_apply.cu) also evaluates.
 //
 // apply_reduced_kernel replaces apply_reduced_packed (_apply_reduced_kernel,
 //   _transpose_out).  The full reduced A x given the expanded u: 7 outputs
@@ -78,17 +79,7 @@ expand_kernel(const T* __restrict__ v, const T* __restrict__ red, T* __restrict_
   const int a = (int)(gid / d.plane);
   const long long q = gid - a * d.plane;
   const int k = (int)(q % d.nz), j = (int)((q / d.nz) % d.ny), i = (int)(q / ((long long)d.nz * d.ny));
-  const int cs1 = d.ny / tile, cs2 = d.nz / tile;
-  const int c0 = i / tile, c1 = j / tile, c2 = k / tile;
-  T mono[K];
-  monomials(T(i - c0 * tile) + (a == 0 ? T(0.5) : T(0)), T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0)),
-            T(k - c2 * tile) + (a == 2 ? T(0.5) : T(0)), mono);
-  // v[c0, c1, a*K + m, c2]
-  const T* vc = v + ((long long)(c0 * cs1 + c1) * (3 * K) + a * K) * cs2 + c2;
-  T acc = mono[0] * __ldg(vc);
-#pragma unroll
-  for (int m = 1; m < K; ++m) acc = acc + mono[m] * __ldg(vc + (long long)m * cs2);
-  u[gid] = acc * __ldg(red + gid);
+  u[gid] = expand_at(v, red, a, i, j, k, tile, d);
 }
 
 template <typename T>

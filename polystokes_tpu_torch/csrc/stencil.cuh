@@ -1,8 +1,8 @@
 // Device functions shared by the packed-apply kernels (packed_apply.cu,
-// fused_apply.cu, transpose_apply.cu): zero-filled loads in the packed slot
-// layout, the forward stencil s_a, the face values w_a the transpose
-// spreads, the transpose itself, the quadratic monomials and a thread-block
-// sum.
+// fused_apply.cu, transpose_apply.cu, update_apply.cu): zero-filled loads in
+// the packed slot layout, the forward stencil s_a, the face values w_a the
+// transpose spreads, the transpose itself, the quadratic monomials and the
+// region polynomial, the pointwise preconditioners and a thread-block sum.
 //
 // Packed layout (see polystokes_tpu_torch/packed_apply.py): every field is
 // a channel of a contiguous [C, nx, ny, nz] array, z fastest.  Solve
@@ -188,6 +188,71 @@ __device__ __forceinline__ void monomials(T px, T py, T pz, T m[K]) {
   m[7] = py * py;
   m[8] = py * pz;
   m[9] = pz * pz;
+}
+
+// The region polynomial on face a at slot (i, j, k): u_a = chi_a sum_m
+// v[cube, aK + m] m_m(p - origin), in the slot's own cube (expand_packed of
+// polystokes_tpu/pallas_apply.py).  v is [cs0, cs1, 3K, cs2]; red the
+// [3, nx, ny, nz] reduced-face masks.  0 off the reduced faces and outside
+// the grid, where v is not read.
+template <typename T>
+__device__ __forceinline__ T expand_at(const T* __restrict__ v, const T* __restrict__ red, int a, int i, int j, int k, int tile, const Dims& d) {
+  if (!d.inside(i, j, k)) return T(0);
+  const T chi = __ldg(red + a * d.plane + d.at(i, j, k));
+  if (chi == T(0)) return T(0);
+  const int cs1 = d.ny / tile, cs2 = d.nz / tile;
+  const int c0 = i / tile, c1 = j / tile, c2 = k / tile;
+  T mono[K];
+  monomials(T(i - c0 * tile) + (a == 0 ? T(0.5) : T(0)), T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0)),
+            T(k - c2 * tile) + (a == 2 ? T(0.5) : T(0)), mono);
+  // v[c0, c1, a*K + m, c2]
+  const T* vc = v + ((long long)(c0 * cs1 + c1) * (3 * K) + a * K) * cs2 + c2;
+  T acc = mono[0] * __ldg(vc);
+#pragma unroll
+  for (int m = 1; m < K; ++m) acc = acc + mono[m] * __ldg(vc + (long long)m * cs2);
+  return acc * chi;
+}
+
+// The reduced branch's face value w_a = ffw_a * (-u_a) with u_a expanded
+// from v in place: face_w_u(c, u, -1, ...) without the stored u.  Each
+// neighbour evaluates the polynomial of its own cube, so a stencil that
+// crosses a cube face needs no window decomposition.
+template <typename T>
+__device__ __forceinline__ T face_w_v(const T* __restrict__ c, const T* __restrict__ v, int a, int i, int j, int k, int tile, const Dims& d) {
+  if (!d.inside(i, j, k)) return T(0);
+  const T u = expand_at(v, c + C_RED * d.plane, a, i, j, k, tile, d);
+  return __ldg(c + (C_FFW + a) * d.plane + d.at(i, j, k)) * (-u);
+}
+
+// The pointwise packed preconditioners z = M^-1 r at slot q: KIND_NONE the
+// identity, KIND_DIAG the Jacobi inverse (f: [7, nx, ny, nz]), KIND_ARROW
+// the closed-form CELL_ARROW inverse (f: the [13, nx, ny, nz] stack of
+// pack_arrow_factors, channels 0-2 kd, 3 inv_schur, 4-6 k, 7-9 inv_d,
+// 10-12 te_inv).  One copy of the arrow formula for every update kernel
+// (_make_cg_update_kernel of polystokes_tpu/pallas_apply.py).
+enum : int { KIND_NONE = 0, KIND_DIAG = 1, KIND_ARROW = 2 };
+enum : int { ARROW_KD = 0, ARROW_SCHUR = 3, ARROW_K = 4, ARROW_INVD = 7, ARROW_TEINV = 10 };
+
+template <typename T, int KIND>
+__device__ __forceinline__ void precond_z(const T* __restrict__ f, long long q, const Dims& d, const T r[7], T z[7]) {
+  if constexpr (KIND == KIND_NONE) {
+#pragma unroll
+    for (int ch = 0; ch < 7; ++ch) z[ch] = r[ch];
+  } else if constexpr (KIND == KIND_DIAG) {
+#pragma unroll
+    for (int ch = 0; ch < 7; ++ch) z[ch] = __ldg(f + ch * d.plane + q) * r[ch];
+  } else {
+    T s = __ldg(f + ARROW_KD * d.plane + q) * r[1];
+#pragma unroll
+    for (int a = 1; a < 3; ++a) s = s + __ldg(f + (ARROW_KD + a) * d.plane + q) * r[1 + a];
+    const T zp = (r[0] + s) * __ldg(f + ARROW_SCHUR * d.plane + q);
+    z[0] = zp;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      z[1 + a] = (r[1 + a] + __ldg(f + (ARROW_K + a) * d.plane + q) * zp) * __ldg(f + (ARROW_INVD + a) * d.plane + q);
+#pragma unroll
+    for (int e = 0; e < 3; ++e) z[4 + e] = r[4 + e] * __ldg(f + (ARROW_TEINV + e) * d.plane + q);
+  }
 }
 
 // Sums each of the N per-thread values acc[m] over the thread block (warp

@@ -54,10 +54,15 @@ def pcg_init(apply_A: Callable, b, x0, precond: Callable = None) -> PCGCarry:
 
 
 def pcg_segment(apply_A: Callable, carry: PCGCarry, precond: Callable = None, tol: float = 1e-3, max_iters: int = 5000,
-                apply_dot: Callable = None) -> PCGCarry:
+                apply_dot: Callable = None, fused_update: Callable = None) -> PCGCarry:
     """Iterate until convergence or ``max_iters`` total iterations.
     ``apply_dot(p) -> (A p, <p, A p>)``, when given, replaces the apply and
-    the pAp dot (the fused kernels of ``fuse_pap``)."""
+    the pAp dot (the fused kernels of ``fuse_pap``).
+    ``fused_update(x, r, p, Ap, alpha) -> (x', r', z, <r',r'>, <x',x'>,
+    <r',z>)``, when given, replaces the two axpys, the preconditioner and
+    the three dots with one kernel (``fuse_update``); ``precond`` is then
+    unused inside the loop, and Ap may be the deferred pair the apply_dot
+    of ``fuse_update`` returns."""
     if precond is None:
         precond = lambda r: r  # noqa: E731
     x, r, p, rsold, k, rre, done = carry
@@ -68,11 +73,15 @@ def pcg_segment(apply_A: Callable, carry: PCGCarry, precond: Callable = None, to
             Ap = apply_A(p)
             pAp = _dot(p, Ap)
         alpha = rsold / torch.where(pAp != 0, pAp, 1.0)
-        x = x + alpha * p
-        r = r - alpha * Ap
-        rre = _rre(_dot(r, r), _dot(x, x))
-        z = precond(r)
-        rs = _dot(r, z)
+        if fused_update is not None:
+            x, r, z, rr, xmag, rs = fused_update(x, r, p, Ap, alpha)
+        else:
+            x = x + alpha * p
+            r = r - alpha * Ap
+            rr, xmag = _dot(r, r), _dot(x, x)
+            z = precond(r)
+            rs = _dot(r, z)
+        rre = _rre(rr, xmag)
         p = (rs / rsold) * p + z
         rsold = rs
         k += 1
@@ -87,9 +96,11 @@ def pcg_result(carry: PCGCarry) -> KrylovResult:
 
 
 def pcg(apply_A: Callable, b, x0, precond: Callable = None, tol: float = 1e-3, max_iters: int = 5000,
-        apply_dot: Callable = None) -> KrylovResult:
+        apply_dot: Callable = None, fused_update: Callable = None) -> KrylovResult:
     """Preconditioned CG; iterations are 0-based at convergence, max_iters
-    when not converged.  ``pcg_init`` always uses ``apply_A``; the loop uses
-    ``apply_dot`` when given."""
+    when not converged.  ``pcg_init`` always uses ``apply_A`` and
+    ``precond``; the loop uses ``apply_dot`` and ``fused_update`` when
+    given."""
     carry = pcg_init(apply_A, b, x0, precond)
-    return pcg_result(pcg_segment(apply_A, carry, precond, tol=tol, max_iters=max_iters, apply_dot=apply_dot))
+    return pcg_result(pcg_segment(apply_A, carry, precond, tol=tol, max_iters=max_iters, apply_dot=apply_dot,
+                                  fused_update=fused_update))

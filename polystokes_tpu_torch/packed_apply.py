@@ -38,7 +38,13 @@ into ``build/polystokes_tpu_torch/`` on first use and loaded with ctypes:
 * ``transpose_u_packed``: [G Dt]^T u, the transpose leg of the
   REGION_ARROW solve; ``forward_s_packed``, ``combine_packed``: the
   forward and combine halves of ``apply_reduced_packed``
-  (``csrc/transpose_apply.cu``).
+  (``csrc/transpose_apply.cu``);
+* ``cg_update_packed``, ``finish_update_packed``,
+  ``exp_finish_update_packed``: the fused CG update of ``fuse_update``
+  from a stored A p, from the deferred (out_grid, u) pair, or from
+  (out_grid, v) with the expand in place; each applies the pointwise
+  preconditioner of its ``kind`` ("none", "diag" or "arrow") and returns
+  the three loop dots as 0-dim tensors (``csrc/update_apply.cu``).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper.
 """
@@ -71,7 +77,21 @@ K = 10  # quadratic monomials per axis
 PAP_BLOCK = 256  # slots per <x, A x> partial of apply_uniform_pap (the kernel's thread block)
 
 LAUNCHES = {name: 0 for name in ("moments", "expand", "apply_reduced", "grid_mom_pap", "finish", "apply_uniform",
-                                 "apply_uniform_pap", "transpose_u", "forward_s", "combine")}
+                                 "apply_uniform_pap", "transpose_u", "forward_s", "combine", "cg_update",
+                                 "finish_update", "exp_finish_update")}
+
+# channels of the CELL_ARROW factor stack (pack_arrow_factors), as in the
+# JAX package's pallas_apply
+_ARROW_KD = 0  # +a
+_ARROW_SCHUR = 3
+_ARROW_K = 4  # +a
+_ARROW_INVD = 7  # +a
+_ARROW_TEINV = 10  # +e
+N_ARROW = 13
+# the preconditioner kinds of the update kernels -> the kernels' KIND
+# template argument, and the factor channels each reads
+UPDATE_KINDS = {"none": 0, "diag": 1, "arrow": 2}
+_KIND_CHANNELS = {"none": None, "diag": 7, "arrow": N_ARROW}
 
 
 def reset_launches() -> None:
@@ -278,6 +298,48 @@ def apply_uniform_pap_packed_plain(xp, coeffs):
     return out, dots.reshape(-1, PAP_BLOCK).sum(dim=1)
 
 
+def pack_arrow_factors(factors: dict) -> torch.Tensor:
+    """precond_factors_packed's CELL_ARROW dict -> the [13, nx, ny, nz]
+    stack the update kernels read: kd | inv_schur | k | inv_d | te_inv."""
+    chans = list(factors["kd"]) + [factors["inv_schur"]] + list(factors["k"])
+    chans += list(factors["inv_d"]) + list(factors["te_inv_s"])
+    return torch.stack(chans, dim=0).contiguous()
+
+
+def _precond_z(r, factors, kind):
+    """z = M^-1 r for the pointwise packed preconditioners."""
+    if kind == "none":
+        return r
+    if kind == "diag":
+        return factors * r
+    f = factors
+    z_p = (r[0] + sum(f[_ARROW_KD + a] * r[1 + a] for a in range(3))) * f[_ARROW_SCHUR]
+    z_tc = [(r[1 + a] + f[_ARROW_K + a] * z_p) * f[_ARROW_INVD + a] for a in range(3)]
+    z_te = [r[4 + e] * f[_ARROW_TEINV + e] for e in range(3)]
+    return torch.stack([z_p] + z_tc + z_te, dim=0)
+
+
+def cg_update_packed_plain(xp, rp, pp, app, alpha, factors=None, kind="none"):
+    """(x', r', z, <r',r'>, <x',x'>, <r',z>): x' = x + alpha p, r' = r -
+    alpha Ap, z = M^-1 r' for the preconditioner ``kind``."""
+    x = xp + alpha * pp
+    r = rp - alpha * app
+    z = _precond_z(r, factors, kind)
+    return x, r, z, torch.sum(r * r), torch.sum(x * x), torch.sum(r * z)
+
+
+def finish_update_packed_plain(xp, rp, pp, alpha, coeffs, out_grid, up, factors=None, kind="none"):
+    """cg_update with Ap = out_grid + [G Dt]^T (-u), the deferred finish."""
+    return cg_update_packed_plain(xp, rp, pp, finish_packed_plain(coeffs, out_grid, up), alpha, factors, kind)
+
+
+def exp_finish_update_packed_plain(xp, rp, pp, alpha, coeffs, out_grid, v_origin, T: int, factors=None, kind="none"):
+    """finish_update with u expanded from v on the reduced-face masks of
+    the coefficient stack."""
+    up = expand_packed_plain(v_origin, coeffs[C_RED : C_RED + 3], T)
+    return finish_update_packed_plain(xp, rp, pp, alpha, coeffs, out_grid, up, factors, kind)
+
+
 # ---------------------------------------------------------------------------
 # The CUDA library: built with nvcc on first use, loaded with ctypes
 # ---------------------------------------------------------------------------
@@ -290,7 +352,8 @@ _LIB = None
 # entry point also takes the stream and exists for f32 and f64
 _SIGNATURES = (("moments", 3, 4), ("expand", 3, 4), ("apply_reduced", 4, 3), ("grid_mom_pap", 5, 4),
                ("finish", 4, 3), ("apply_uniform", 3, 3), ("apply_uniform_pap", 4, 3), ("transpose_u", 3, 3),
-               ("forward_s", 3, 3), ("combine", 5, 3))
+               ("forward_s", 3, 3), ("combine", 5, 3), ("cg_update", 10, 4), ("finish_update", 12, 4),
+               ("exp_finish_update", 12, 5))
 
 
 def _nvcc() -> str:
@@ -358,10 +421,13 @@ def _library():
 
 
 def _launch(name: str, tensors, ints, dtype):
+    """Launch one kernel; a tensor given as None is a null pointer (the
+    factors of the update kernels' kind "none")."""
     fn = getattr(_library(), f"ps_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
     device = tensors[0].device
     with torch.cuda.device(device):  # the runtime launches on the current device
-        err = fn(*[t.data_ptr() for t in tensors], *ints, torch.cuda.current_stream(device).cuda_stream)
+        err = fn(*[None if t is None else t.data_ptr() for t in tensors], *ints,
+                 torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[name] += 1
@@ -526,3 +592,65 @@ def combine_packed(xp, coeffs, sp, up):
     out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
     _launch("combine", (xp, coeffs, sp, up, out), res, xp.dtype)
     return out
+
+
+def _update_inputs(name, xp, rp, pp, alpha, factors, kind, extra, extra_shapes):
+    """Checks shared by the update wrappers; returns (device type, alpha as
+    a one-element tensor on xp's device)."""
+    if kind not in UPDATE_KINDS:
+        raise ValueError(f"{name}: kind must be one of {tuple(UPDATE_KINDS)}, got {kind!r}")
+    res = tuple(xp.shape[1:])
+    n_f = _KIND_CHANNELS[kind]
+    if (factors is None) != (n_f is None):
+        raise ValueError(f"{name}: kind {kind!r} takes {'no factors' if n_f is None else f'{n_f} factor channels'}")
+    tensors = [xp, rp, pp, *extra] + ([] if factors is None else [factors])
+    shapes = [(7,) + res] * 3 + list(extra_shapes) + ([] if n_f is None else [(n_f,) + res])
+    dev = _check(name, tensors, shapes)
+    return dev, torch.as_tensor(alpha, dtype=xp.dtype, device=xp.device).reshape(1)
+
+
+def _run_update(name, tensors, ints, xp, kind):
+    """Launch an update kernel on (alpha, inputs..., factors) and return the
+    JAX 6-tuple; the [3, blocks] dot partials are summed in a fixed order."""
+    xo, ro, zo = (torch.empty_like(xp) for _ in range(3))
+    partials = torch.empty((3, -(-xp[0].numel() // PAP_BLOCK)), dtype=xp.dtype, device=xp.device)
+    _launch(name, (*tensors, xo, ro, zo, partials), (*tuple(xp.shape[1:]), *ints, UPDATE_KINDS[kind]), xp.dtype)
+    sums = torch.sum(partials, dim=1)
+    return xo, ro, zo, sums[0], sums[1], sums[2]
+
+
+def cg_update_packed(xp, rp, pp, app, alpha, factors=None, kind="none"):
+    """(x', r', z, <r',r'>, <x',x'>, <r',z>): x' = x + alpha p, r' = r -
+    alpha Ap, z = M^-1 r' for the preconditioner ``kind`` with its
+    ``factors`` ([13, ...] arrow, [7, ...] diagonal inverse, None); alpha
+    is a 0-dim tensor on the device, read there by the kernel."""
+    res = tuple(xp.shape[1:])
+    dev, a = _update_inputs("cg_update_packed", xp, rp, pp, alpha, factors, kind, (app,), ((7,) + res,))
+    if dev == "cpu":
+        return cg_update_packed_plain(xp, rp, pp, app, a[0], factors, kind)
+    return _run_update("cg_update", (a, xp, rp, pp, app, factors), (), xp, kind)
+
+
+def finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, up, factors=None, kind="none"):
+    """cg_update_packed with Ap = out_grid + [G Dt]^T (-u), finished in the
+    kernel from the deferred (out_grid, u) pair."""
+    res = tuple(xp.shape[1:])
+    n = _coeff_channels("finish_update_packed", coeffs)
+    dev, a = _update_inputs("finish_update_packed", xp, rp, pp, alpha, factors, kind, (coeffs, out_grid, up),
+                            ((n,) + res, (7,) + res, (3,) + res))
+    if dev == "cpu":
+        return finish_update_packed_plain(xp, rp, pp, a[0], coeffs, out_grid, up, factors, kind)
+    return _run_update("finish_update", (a, coeffs, out_grid, up, xp, rp, pp, factors), (), xp, kind)
+
+
+def exp_finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, v_origin, T: int, factors=None, kind="none"):
+    """finish_update_packed with u expanded in the kernel from the per-cube
+    polynomial coefficients v [cs0, cs1, 3K, cs2] on the reduced-face masks
+    of the 17-channel stack: u never reaches device memory."""
+    res = tuple(xp.shape[1:])
+    cs = _cube_dims(res, T)
+    dev, a = _update_inputs("exp_finish_update_packed", xp, rp, pp, alpha, factors, kind, (coeffs, out_grid, v_origin),
+                            ((N_COEFF,) + res, (7,) + res, (cs[0], cs[1], 3 * K, cs[2])))
+    if dev == "cpu":
+        return exp_finish_update_packed_plain(xp, rp, pp, a[0], coeffs, out_grid, v_origin, T, factors, kind)
+    return _run_update("exp_finish_update", (a, coeffs, v_origin, out_grid, xp, rp, pp, factors), (T,), xp, kind)

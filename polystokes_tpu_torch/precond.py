@@ -1,4 +1,6 @@
-"""The CELL_ARROW and REGION_ARROW preconditioners (``polystokes_tpu.precond``).
+"""The DIAGONAL, CELL_ARROW and REGION_ARROW preconditioners
+(``polystokes_tpu.precond``).  DIAGONAL is Jacobi on |diag(A)|
+(``schur_diagonal``); IDENTITY needs no factors.
 
 Per cell, the exact 4x4 restriction of -A to (p, tau_xx, tau_yy, tau_zz)
 is the arrow matrix
@@ -80,6 +82,15 @@ def _axis_cell_k_and_edge_diag(grid, cls, asm: Assembled, params: SolverParams, 
         for e, (elo, ehi) in erow.items():
             te_d[e] = te_d[e] + scatter_face_to_edge(elo**2 * wgt, a, e, 0) + scatter_face_to_edge(ehi**2 * wgt, a, e, 1)
     return k, te_d
+
+
+def schur_diagonal(grid, cls, asm: Assembled, params: SolverParams) -> PTau:
+    """|diag(A)| as a PTau (positive on DOFs, zero elsewhere): the Jacobi
+    diagonal of the DIAGONAL preconditioner."""
+    k, te_d = _axis_cell_k_and_edge_diag(grid, cls, asm, params)
+    tc = tuple(k[a] + 0.5 * asm.uinv_c for a in range(3))
+    te = tuple(te_d[e] + 0.5 * asm.uinv_e[e] for e in range(3))
+    return PTau(p=k[0] + k[1] + k[2], tc=tc, te=te)
 
 
 def _safe_inv(x):

@@ -10,6 +10,10 @@ per-cube region algebra -> polynomial expand -> the reduced apply; with
 ``fuse_pap`` each CG iteration instead runs the fused grid branch with
 moments and <p, A p> partials -> region algebra -> expand -> finish.  The
 uniform solve (``do_reduced_regions=False``) runs one kernel per apply.
+With ``fuse_update`` and a pointwise preconditioner (CELL_ARROW, DIAGONAL,
+IDENTITY) one kernel does the CG's vector update, preconditioner and dots;
+under ``fuse_pap`` on the reduced step it also does the finish (and with
+``fuse_expand`` the expand), which the apply then defers to it.
 """
 from __future__ import annotations
 
@@ -40,17 +44,21 @@ from .packed_apply import (
     apply_reduced_packed,
     apply_uniform_packed,
     apply_uniform_pap_packed,
+    cg_update_packed,
+    exp_finish_update_packed,
     expand_packed,
     finish_packed,
+    finish_update_packed,
     grid_mom_pap_packed,
     moments_packed,
+    pack_arrow_factors,
     pack_coeffs,
     pack_ptau,
     reduced_face_masks,
     transpose_u_packed,
     unpack_ptau,
 )
-from .precond import _arrow_solve_from, cell_arrow_factors, region_schur_inv
+from .precond import _arrow_solve_from, _safe_inv, cell_arrow_factors, region_schur_inv, schur_diagonal
 from .reduced import ReducedData, build_reduced, cube_scatter_matrix, expand_J, finalize_reduced, reduce_J
 from .weights import compute_weights
 
@@ -252,14 +260,18 @@ def make_apply_packed(grid: Grid, cls: Classification, asm: Assembled, params: S
     return apply_packed
 
 
-def make_apply_packed_pap(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int):
+def make_apply_packed_pap(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int,
+                          defer_finish: bool = False):
     """The fused apply returning (A x, <x, A x>).  Reduced: one kernel
     gives the grid branch with its mass terms, the per-cube moments and the
     per-cube partials of <x, out_grid>; the region algebra turns the
     moments into v; expand and finish add the reduced branch.  That
     branch's share of <x, A x> is -sum(mom * v) on the small per-cube
     arrays (<x, F^T(-chi J v)> = -<chi F x, J v>), so finish never reads x.
-    Uniform: one kernel gives A x and the partials."""
+    With ``defer_finish`` finish is left to the fused update, and A x comes
+    back as the pair (out_grid, v) under ``fuse_expand`` (the update
+    kernel expands too) or (out_grid, u).  Uniform: one kernel gives A x and
+    the partials."""
     if not params.do_reduced_regions:
         coeffs = pack_coeffs(asm)
 
@@ -271,21 +283,83 @@ def make_apply_packed_pap(grid: Grid, cls: Classification, asm: Assembled, param
     coeffs = pack_coeffs(asm, cls)
     T = params.tile_size
     algebra, red_packed = _region_algebra_packed(grid, cls, asm, params, R)
+    fuse_expand = _fuse_expand_ok(params)
 
     def apply_dot(xp):
         out_grid, mom, pap_grid = grid_mom_pap_packed(xp, coeffs, T)
         v = algebra(mom)
         pap = torch.sum(pap_grid) - torch.sum(mom * v)
-        return finish_packed(coeffs, out_grid, expand_packed(v, red_packed, T)), pap
+        if defer_finish and fuse_expand:
+            return (out_grid, v), pap
+        up = expand_packed(v, red_packed, T)
+        if defer_finish:
+            return (out_grid, up), pap
+        return finish_packed(coeffs, out_grid, up), pap
 
     return apply_dot
 
 
+def _fuse_expand_ok(params: SolverParams) -> bool:
+    """Whether the deferred finish goes to the update kernel that also
+    expands (``exp_finish_update_packed``).  The JAX package also asks its
+    TPU kernel's block rule (``exp_finish_supported``); the CUDA kernel
+    takes every resolution the tile size divides."""
+    return bool(params.fuse_expand and params.do_reduced_regions)
+
+
+def make_fused_update(params: SolverParams, factors, cls: Classification, asm: Assembled):
+    """The fused CG update ``fused(x, r, p, Ap, alpha)`` of ``fuse_update``
+    for the pointwise preconditioners (CELL_ARROW: kind "arrow" on the
+    13-channel stack; DIAGONAL: "diag" on the packed inverse diagonal;
+    IDENTITY: "none"), else None, as in the JAX package: REGION_ARROW's
+    solve is not pointwise.  Ap is a stored A p (``cg_update_packed``) or,
+    on the reduced step, the deferred pair of
+    ``make_apply_packed_pap(defer_finish=True)``: (out_grid, v) goes to
+    ``exp_finish_update_packed``, (out_grid, u) to ``finish_update_packed``."""
+    if not params.fuse_update:
+        return None
+    if params.preconditioner == PreconditionerType.CELL_ARROW:
+        fstack, kind = pack_arrow_factors(factors), "arrow"
+    elif params.preconditioner == PreconditionerType.DIAGONAL:
+        fstack, kind = factors["inv_packed"], "diag"
+    elif params.preconditioner == PreconditionerType.IDENTITY:
+        fstack, kind = None, "none"
+    else:
+        return None
+    coeffs = pack_coeffs(asm, cls) if params.do_reduced_regions else None
+    fuse_expand = _fuse_expand_ok(params)
+    T = params.tile_size
+
+    def fused(x, r, p, ap, alpha):
+        if isinstance(ap, tuple):
+            og, tail = ap
+            if fuse_expand:
+                return exp_finish_update_packed(x, r, p, alpha, coeffs, og, tail, T, factors=fstack, kind=kind)
+            return finish_update_packed(x, r, p, alpha, coeffs, og, tail, factors=fstack, kind=kind)
+        return cg_update_packed(x, r, p, ap, alpha, factors=fstack, kind=kind)
+
+    return fused
+
+
+def _defer_finish(params: SolverParams, fused_update) -> bool:
+    """Whether apply_dot returns the deferred pair: only when a fused
+    update will finish it."""
+    return bool(params.do_reduced_regions and fused_update is not None)
+
+
 def precond_factors_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams):
-    """Loop-invariant arrow factor fields in the packed layout; under
+    """Loop-invariant preconditioner factor fields in the packed layout:
+    None for IDENTITY; ``inv_packed``, the packed inverse of |diag(A)|, for
+    DIAGONAL; the arrow factors for CELL_ARROW and REGION_ARROW, under
     REGION_ARROW with regions also ``sinv``, the per-region inverse
     capacitance, and the arrow block without the reduced quadratic form.
     The uniform step has no regions and takes the plain arrow factors."""
+    if params.preconditioner == PreconditionerType.IDENTITY:
+        return None
+    if params.preconditioner == PreconditionerType.DIAGONAL:
+        d = schur_diagonal(grid, cls, asm, params)
+        return dict(inv_packed=pack_ptau(PTau(p=_safe_inv(d.p), tc=tuple(_safe_inv(t) for t in d.tc),
+                                              te=tuple(_safe_inv(t) for t in d.te))))
     region = params.preconditioner == PreconditionerType.REGION_ARROW and params.do_reduced_regions
     fac = cell_arrow_factors(grid, cls, asm, params, include_reduced_q=not region)
     k, inv_d, kd, inv_schur, te_inv = fac
@@ -297,12 +371,18 @@ def precond_factors_packed(grid: Grid, cls: Classification, asm: Assembled, para
 
 
 def make_preconditioner_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, factors=None):
-    """The packed arrow solve (closed-form per-cell arrow inverse) and,
+    """The packed preconditioner: None for IDENTITY; the Jacobi product for
+    DIAGONAL; the arrow solve (closed-form per-cell arrow inverse) and,
     when ``factors`` hold ``sinv``, REGION_ARROW's Woodbury correction
     z = y - M0^-1 F^T chi J^T S^-1 J chi F y, y = M0^-1 r: the moments and
     expand kernels of the apply and the transpose_u kernel."""
+    if params.preconditioner == PreconditionerType.IDENTITY:
+        return None
     if factors is None:
         factors = precond_factors_packed(grid, cls, asm, params)
+    if params.preconditioner == PreconditionerType.DIAGONAL:
+        inv_packed = factors["inv_packed"]
+        return lambda rp: inv_packed * rp
     k, inv_d, kd = factors["k"], factors["inv_d"], factors["kd"]
     inv_schur, te_inv_s = factors["inv_schur"], factors["te_inv_s"]
 
@@ -338,16 +418,20 @@ def build_rhs(grid: Grid, cls: Classification, asm: Assembled, params: SolverPar
 
 
 def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParams):
-    """(apply_K, apply_dot, precond, b_K, x0_K) on the packed layout: the
-    unsharded, undeflated branch of the JAX package's builder, zero initial
-    guess; ``apply_dot`` is the fused apply with <p, A p> under
-    ``fuse_pap``, else None."""
+    """(apply_K, apply_dot, fused_update, precond, b_K, x0_K) on the packed
+    layout: the unsharded, undeflated branch of the JAX package's builder,
+    zero initial guess; ``apply_dot`` is the fused apply with <p, A p>
+    under ``fuse_pap``, else None; ``fused_update`` the fused CG update
+    under ``fuse_update`` with a pointwise preconditioner, else None."""
     R = effective_max_regions(grid, params)
     b_K = pack_ptau(build_rhs(grid, cls, asm, params, R))
     apply_K = make_apply_packed(grid, cls, asm, params, R)
-    apply_dot = make_apply_packed_pap(grid, cls, asm, params, R) if params.fuse_pap else None
-    precond = make_preconditioner_packed(grid, cls, asm, params, precond_factors_packed(grid, cls, asm, params))
-    return apply_K, apply_dot, precond, b_K, torch.zeros_like(b_K)
+    pfac = precond_factors_packed(grid, cls, asm, params)
+    fused_update = make_fused_update(params, pfac, cls, asm)
+    apply_dot = (make_apply_packed_pap(grid, cls, asm, params, R, defer_finish=_defer_finish(params, fused_update))
+                 if params.fuse_pap else None)
+    precond = make_preconditioner_packed(grid, cls, asm, params, pfac)
+    return apply_K, apply_dot, fused_update, precond, b_K, torch.zeros_like(b_K)
 
 
 def recover_velocity(grid: Grid, cls: Classification, asm: Assembled, x: PTau, params: SolverParams, R: int):
@@ -443,10 +527,10 @@ def step(grid: Grid, scene: Scene, params: SolverParams):
     The packed kernels need ``tile_size`` to divide every resolution."""
     R = effective_max_regions(grid, params)
     cls, asm = _setup(grid, scene, params)
-    apply_K, apply_dot, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params)
+    apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params)
     if params.do_solve:
         res = krylov.pcg(apply_K, b_K, x0_K, precond=precond, tol=params.tolerance, max_iters=params.max_iterations,
-                         apply_dot=apply_dot)
+                         apply_dot=apply_dot, fused_update=fused_update)
     else:
         res = krylov.KrylovResult(x=x0_K, iterations=0, error=0.0, converged=True, applies=0)
     x = unpack_ptau(res.x)

@@ -162,6 +162,64 @@ def test_cuda_region_arrow_step_matches_cpu():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_cuda_update_kernels_match_twins(dtype):
+    """cg_update, finish_update and exp_finish_update against their twins on
+    the card for every preconditioner kind, on the solid-cut floor at 32^3,
+    tile 16, with the real CELL_ARROW and DIAGONAL factors."""
+    _require_cuda()
+    grid, params, cls, asm = _solid_setup(dtype)
+    coeffs = tpa.pack_coeffs(asm, cls)
+    algebra, red = tsolver._region_algebra_packed(grid, cls, asm, params, effective_max_regions(grid, params))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mask = tpa.packed_masks(cls, dtype)
+    x, r, p, ap, og = ((torch.randn((7,) + grid.res, generator=gen, device="cuda", dtype=dtype) * mask).contiguous()
+                       for _ in range(5))
+    v = algebra(tpa.moments_packed_plain(p, coeffs, T))
+    u = tpa.expand_packed_plain(v, red, T)
+    alpha = torch.tensor(0.37, dtype=dtype, device="cuda")
+    factors = {"none": None,
+               "diag": tsolver.precond_factors_packed(grid, cls, asm, params.replace(
+                   preconditioner=PreconditionerType.DIAGONAL))["inv_packed"],
+               "arrow": tpa.pack_arrow_factors(tsolver.precond_factors_packed(grid, cls, asm, params))}
+    cases = []
+    for kind, f in factors.items():
+        cases += [
+            ("cg_update", lambda f=f, kind=kind: tpa.cg_update_packed(x, r, p, ap, alpha, f, kind),
+             tpa.cg_update_packed_plain(x, r, p, ap, alpha, f, kind)),
+            ("finish_update", lambda f=f, kind=kind: tpa.finish_update_packed(x, r, p, alpha, coeffs, og, u, f, kind),
+             tpa.finish_update_packed_plain(x, r, p, alpha, coeffs, og, u, f, kind)),
+            ("exp_finish_update",
+             lambda f=f, kind=kind: tpa.exp_finish_update_packed(x, r, p, alpha, coeffs, og, v, T, f, kind),
+             tpa.exp_finish_update_packed_plain(x, r, p, alpha, coeffs, og, v, T, f, kind)),
+        ]
+    _check_cases(cases, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_update_step_matches_cpu():
+    """Path F (fuse_update with fuse_expand, CELL_ARROW) on the card against
+    the CPU, fp64 32^3; every iteration's update is the expanding kernel."""
+    _require_cuda()
+    params = SolverParams(dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
+                          fuse_update=True)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        grid, scene = honey_coil(n=32, dtype=torch.float64, device=dev)
+        tpa.reset_launches()
+        vel, _, stats = tsolver.step(grid, scene, params)
+        assert stats["converged"] and stats["boundary_active"] == 0 and stats["n_regions"] >= 1
+        if dev == "cuda":
+            applies = stats["operator_applies"]
+            assert tpa.LAUNCHES["exp_finish_update"] == tpa.LAUNCHES["grid_mom_pap"] == applies - 1
+            assert tpa.LAUNCHES["expand"] == 1 and tpa.LAUNCHES["finish"] == 0
+        out[dev] = [v.cpu() for v in vel]
+    scale = max(float(v.abs().max()) for v in out["cpu"])
+    for a in range(3):
+        assert float((out["cuda"][a] - out["cpu"][a]).abs().max()) <= 2e-4 * scale
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_cpu_mix():
     """A CUDA tensor never reaches a twin: mixing devices raises."""
     _require_cuda()

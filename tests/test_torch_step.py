@@ -98,7 +98,7 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("field, value", [
-    ("do_tile", True), ("cube_regions", False), ("coeff_bf16", True), ("fuse_update", True), ("deflation", True),
+    ("do_tile", True), ("cube_regions", False), ("coeff_bf16", True), ("deflation", True),
     ("cc_host_callback", True), ("use_pallas", False), ("bicgstab_fallback", True),
 ])
 def test_unported_options_raise(field, value):
@@ -106,7 +106,7 @@ def test_unported_options_raise(field, value):
         SolverParams(**{field: value})
 
 
-@pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions"])
+@pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions", "fuse_update", "fuse_expand"])
 @pytest.mark.parametrize("value", [True, False])
 def test_ported_options_construct(field, value):
     assert getattr(SolverParams(**{field: value}), field) is value
