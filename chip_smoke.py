@@ -8,13 +8,18 @@ Phases (any failed check exits non-zero before the final line):
   0. require CUDA; print the card (nvidia-smi name and power limit) and
      the torch / CUDA versions;
   1. build the kernels of polystokes_tpu_torch/csrc with nvcc (sm_90a, one
-     nvcc per source, all started together);
+     nvcc per source, all started together); print each kernel's
+     registers, static shared memory and spill bytes from the ptxas report,
+     and grid_mom_pap's planned column, its window's dynamic shared memory
+     and the blocks per SM the occupancy calculator allows;
   2. each of the thirteen kernels against its plain PyTorch twin at the
      main-path shapes (honey_coil 128^3, tile 16, float32; the uniform
      kernels on the uniform setup's 14-channel stack): max |diff| <= 1e-5
      max |twin| on every output, on the summed <x, A x> partials and on the
      three dots of the update kernels, with median times over 20 launches
-     and the HBM bound.  The update kernels run on the real CELL_ARROW
+     (each timed alone, host call included, as in earlier records), the
+     device time of one launch (20 launches replayed from a CUDA graph) and
+     the HBM bound.  The update kernels run on the real CELL_ARROW
      (kind arrow) and DIAGONAL (kind diag) factors: cg_update with every
      kind, finish_update and exp_finish_update with arrow and none; the
      kernel table reports kind arrow, the kind of every path below;
@@ -63,6 +68,7 @@ nvidia-smi line of the card; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -109,6 +115,27 @@ MAIN_PATH = {"moments": "A", "expand": "A", "apply_reduced": "A", "grid_mom_pap"
              "exp_finish_update": "F"}
 
 
+def ptxas_summary(report: str):
+    """One dict per compiled kernel of nvcc's -Xptxas -v report: the mangled
+    entry, registers, static shared memory and spill bytes."""
+    kernels, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"entry": m.group(1), "registers": 0, "smem": 0, "spill_stores": 0, "spill_loads": 0}
+            kernels.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["smem"] = int(sm.group(1)) if sm else 0
+    return kernels
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
@@ -144,6 +171,33 @@ def median_ms(fn, n=20):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, n=20, reps=5):
+    """Median device time of one launch: n calls captured in a CUDA graph and
+    replayed, so the host's per-call cost (which median_ms includes) drops
+    out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm on a side stream before the capture, as torch.cuda.graphs asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
     return statistics.median(times)
 
 
@@ -223,9 +277,14 @@ def main() -> None:
     t0 = time.perf_counter()
     path, nvcc_s, ptxas = pa.build_kernels()
     print(f"phase 1 build: {path} nvcc {nvcc_s:.1f} s (build step {time.perf_counter() - t0:.1f} s)", flush=True)
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}", flush=True)
+    for k in ptxas_summary(ptxas):
+        print(f"  ptxas: {k['entry']}: {k['registers']} registers, {k['smem']} bytes static shared memory, "
+              f"spill stores {k['spill_stores']} B, spill loads {k['spill_loads']} B", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        by, bz = pa.grid_mom_plan(TILE)
+        window, blocks = pa.grid_mom_pap_occupancy(dtype, by, bz)
+        print(f"  grid_mom_pap {dtype} at tile {TILE}: column {by} x {bz}, "
+              f"{window} bytes dynamic shared memory, {blocks} blocks per SM", flush=True)
 
     # -- phase 2: each kernel against its twin at the main-path shapes
     t0 = time.perf_counter()
@@ -280,10 +339,13 @@ def main() -> None:
         err = compare(label, got, ref)
         ms_twin = median_ms(twin)
         ms_kernel = median_ms(kernel)
+        ms_device = graph_ms(kernel)
         bound_ms, bound_by = bound(name, plane, small_bytes, xp.element_size(), kind or "arrow")
-        print(f"phase 2 {label}: kernel {ms_kernel:.4f} ms twin {ms_twin:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
-              f"{100 * bound_ms / ms_kernel:.1f} % of the bound", flush=True)
-        return {"max_abs_err": err, "ms": ms_kernel, "plain_ms": ms_twin, "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"phase 2 {label}: kernel {ms_kernel:.4f} ms (device {ms_device:.4f} ms) twin {ms_twin:.4f} ms "
+              f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms_kernel:.1f} % of the bound "
+              f"({100 * bound_ms / ms_device:.1f} % on device time)", flush=True)
+        return {"max_abs_err": err, "ms": ms_kernel, "device_ms": ms_device, "plain_ms": ms_twin, "bound_ms": bound_ms,
+                "bound_by": bound_by}
 
     table = {}
     for name, (kernel, twin, small_bytes) in cases.items():

@@ -17,9 +17,16 @@
 // expand_kernel replaces expand_packed (_make_expand_kernel).  Evaluates
 //   the region polynomials on reduced faces, u_a = chi_a sum_k v[cube, aK+k]
 //   m_k(p - origin).  Bound: memory, an elementwise pass (3 channels read,
-//   3 written; the small v array stays in cache).  Design: one thread per
-//   (axis, slot), z fastest, on stencil.cuh expand_at, the polynomial that
-//   exp_finish_update_kernel (update_apply.cu) also evaluates.
+//   3 written; the small v array stays in cache).  Design: a 3-D grid over
+//   (z runs, rows y, planes x), so a thread's indices come from blockIdx
+//   and threadIdx without a 64-bit division; each thread takes a run of
+//   VEC consecutive z slots in one cube (16-byte loads of chi and stores
+//   of u, chosen by packed_apply.py expand_plan, one slot where nz, the tile
+//   or the alignment forbid), for all three axes.  Per axis it loads the
+//   cube's 10 coefficients once and folds them into A + B z + C z^2 along
+//   the row (stencil.cuh row_poly, which expand_at and so
+//   exp_finish_update_kernel evaluate at one slot); a run with no reduced
+//   face loads no coefficient.
 //
 // apply_reduced_kernel replaces apply_reduced_packed (_apply_reduced_kernel,
 //   _transpose_out).  The full reduced A x given the expanded u: 7 outputs
@@ -31,6 +38,8 @@
 //   mostly by L1/L2.  Staging w for a tile plus a one-slot halo in shared
 //   memory is the known next step.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "stencil.cuh"
 
@@ -71,15 +80,40 @@ moments_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restrict__
   if (threadIdx.x < 3 * K) mom[((long long)(c0 * cs1 + c1) * (3 * K) + threadIdx.x) * cs2 + c2] = total;
 }
 
-template <typename T>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
 expand_kernel(const T* __restrict__ v, const T* __restrict__ red, T* __restrict__ u, Dims d, int tile) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= 3 * d.plane) return;
-  const int a = (int)(gid / d.plane);
-  const long long q = gid - a * d.plane;
-  const int k = (int)(q % d.nz), j = (int)((q / d.nz) % d.ny), i = (int)(q / ((long long)d.nz * d.ny));
-  u[gid] = expand_at(v, red, a, i, j, k, tile, d);
+  // thread: VEC consecutive z slots k0.. of row (i, j), all in one cube
+  // (VEC divides tile); every axis
+  const int k0 = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
+  const int j = blockIdx.y * blockDim.y + threadIdx.y, i = blockIdx.z;
+  if (k0 >= d.nz || j >= d.ny) return;
+  const int cs1 = d.ny / tile, cs2 = d.nz / tile;
+  const int c0 = i / tile, c1 = j / tile, c2 = k0 / tile;
+  const long long q = d.at(i, j, k0);
+  // v[c0, c1, a*K + m, c2]
+  const T* vc = v + (long long)(c0 * cs1 + c1) * (3 * K) * cs2 + c2;
+  using V = Vec<T, VEC>;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const V chi = *reinterpret_cast<const V*>(red + a * d.plane + q);
+    bool any = false;
+#pragma unroll
+    for (int s = 0; s < VEC; ++s) any = any || chi.v[s] != T(0);
+    V res;
+    if (!any) {
+#pragma unroll
+      for (int s = 0; s < VEC; ++s) res.v[s] = T(0);
+    } else {
+      // p cube-local, +0.5 on the face axis
+      const RowPoly<T> poly = row_poly(vc + a * K * cs2, cs2, T(i - c0 * tile) + (a == 0 ? T(0.5) : T(0)),
+                                       T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0)));
+      const T pz0 = T(k0 - c2 * tile) + (a == 2 ? T(0.5) : T(0));
+#pragma unroll
+      for (int s = 0; s < VEC; ++s) res.v[s] = chi.v[s] == T(0) ? T(0) : poly.at(pz0 + T(s)) * chi.v[s];
+    }
+    *reinterpret_cast<V*>(u + a * d.plane + q) = res;
+  }
 }
 
 template <typename T>
@@ -106,10 +140,22 @@ int moments(const T* x, const T* c, T* mom, int nx, int ny, int nz, int tile, cu
   return (int)cudaGetLastError();
 }
 
+// VEC slots a thread of the vector path: 16 bytes
 template <typename T>
-int expand(const T* v, const T* red, T* u, int nx, int ny, int nz, int tile, cudaStream_t stream) {
+constexpr int kVec = 16 / (int)sizeof(T);
+
+template <typename T>
+int expand(const T* v, const T* red, T* u, int nx, int ny, int nz, int tile, int vec, int bx, int by, cudaStream_t stream) {
+  if ((vec != 1 && vec != kVec<T>) || nz % vec || tile % vec || bx < 1 || by < 1 || bx * by > kThreads ||
+      (vec > 1 && (reinterpret_cast<uintptr_t>(red) | reinterpret_cast<uintptr_t>(u)) % 16))
+    return (int)cudaErrorInvalidValue;
+  const int nzv = nz / vec;
+  const dim3 grid((unsigned)((nzv + bx - 1) / bx), (unsigned)((ny + by - 1) / by), (unsigned)nx);
   const Dims d = dims(nx, ny, nz);
-  expand_kernel<T><<<blocks_for(3 * d.plane), kThreads, 0, stream>>>(v, red, u, d, tile);
+  if (vec == 1)
+    expand_kernel<T, 1><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
+  else
+    expand_kernel<T, kVec<T>><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
   return (int)cudaGetLastError();
 }
 
@@ -130,11 +176,13 @@ int ps_moments_f32(const float* x, const float* c, float* mom, int nx, int ny, i
 int ps_moments_f64(const double* x, const double* c, double* mom, int nx, int ny, int nz, int tile, cudaStream_t s) {
   return ps::moments(x, c, mom, nx, ny, nz, tile, s);
 }
-int ps_expand_f32(const float* v, const float* red, float* u, int nx, int ny, int nz, int tile, cudaStream_t s) {
-  return ps::expand(v, red, u, nx, ny, nz, tile, s);
+int ps_expand_f32(const float* v, const float* red, float* u, int nx, int ny, int nz, int tile, int vec, int bx, int by,
+                  cudaStream_t s) {
+  return ps::expand(v, red, u, nx, ny, nz, tile, vec, bx, by, s);
 }
-int ps_expand_f64(const double* v, const double* red, double* u, int nx, int ny, int nz, int tile, cudaStream_t s) {
-  return ps::expand(v, red, u, nx, ny, nz, tile, s);
+int ps_expand_f64(const double* v, const double* red, double* u, int nx, int ny, int nz, int tile, int vec, int bx, int by,
+                  cudaStream_t s) {
+  return ps::expand(v, red, u, nx, ny, nz, tile, vec, bx, by, s);
 }
 int ps_apply_reduced_f32(const float* x, const float* c, const float* u, float* out, int nx, int ny, int nz, cudaStream_t s) {
   return ps::apply_reduced(x, c, u, out, nx, ny, nz, s);

@@ -2,7 +2,7 @@
 // fused_apply.cu, transpose_apply.cu, update_apply.cu): zero-filled loads in
 // the packed slot layout, the forward stencil s_a, the face values w_a the
 // transpose spreads, the transpose itself, the quadratic monomials and the
-// region polynomial, the pointwise preconditioners and a thread-block sum.
+// region polynomial (along a row and at a slot), the pointwise preconditioners and a thread-block sum.
 //
 // Packed layout (see polystokes_tpu_torch/packed_apply.py): every field is
 // a channel of a contiguous [C, nx, ny, nz] array, z fastest.  Solve
@@ -190,11 +190,30 @@ __device__ __forceinline__ void monomials(T px, T py, T pz, T m[K]) {
   m[9] = pz * pz;
 }
 
+// The region polynomial sum_m v_m m_m(px, py, pz) of one cube and axis
+// along a row of fixed (px, py), cube-local face positions: A + B pz + C
+// pz^2, evaluated by Horner.  vc points at v[c0, c1, aK, c2] of the [cs0,
+// cs1, 3K, cs2] coefficients, whose monomials lie cs2 apart.
+template <typename T>
+struct RowPoly {
+  T a, b, c;
+  __device__ __forceinline__ T at(T pz) const { return a + pz * (b + pz * c); }
+};
+
+template <typename T>
+__device__ __forceinline__ RowPoly<T> row_poly(const T* __restrict__ vc, int cs2, T px, T py) {
+  T m[K];
+#pragma unroll
+  for (int n = 0; n < K; ++n) m[n] = __ldg(vc + (long long)n * cs2);
+  return {m[0] + m[1] * px + m[2] * py + m[4] * (px * px) + m[5] * (px * py) + m[7] * (py * py),
+          m[3] + m[6] * px + m[8] * py, m[9]};
+}
+
 // The region polynomial on face a at slot (i, j, k): u_a = chi_a sum_m
 // v[cube, aK + m] m_m(p - origin), in the slot's own cube (expand_packed of
-// polystokes_tpu/pallas_apply.py).  v is [cs0, cs1, 3K, cs2]; red the
-// [3, nx, ny, nz] reduced-face masks.  0 off the reduced faces and outside
-// the grid, where v is not read.
+// polystokes_tpu/pallas_apply.py), p cube-local with +0.5 on the face axis.
+// v is [cs0, cs1, 3K, cs2]; red the [3, nx, ny, nz] reduced-face masks.  0
+// off the reduced faces and outside the grid, where v is not read.
 template <typename T>
 __device__ __forceinline__ T expand_at(const T* __restrict__ v, const T* __restrict__ red, int a, int i, int j, int k, int tile, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
@@ -202,15 +221,10 @@ __device__ __forceinline__ T expand_at(const T* __restrict__ v, const T* __restr
   if (chi == T(0)) return T(0);
   const int cs1 = d.ny / tile, cs2 = d.nz / tile;
   const int c0 = i / tile, c1 = j / tile, c2 = k / tile;
-  T mono[K];
-  monomials(T(i - c0 * tile) + (a == 0 ? T(0.5) : T(0)), T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0)),
-            T(k - c2 * tile) + (a == 2 ? T(0.5) : T(0)), mono);
-  // v[c0, c1, a*K + m, c2]
   const T* vc = v + ((long long)(c0 * cs1 + c1) * (3 * K) + a * K) * cs2 + c2;
-  T acc = mono[0] * __ldg(vc);
-#pragma unroll
-  for (int m = 1; m < K; ++m) acc = acc + mono[m] * __ldg(vc + (long long)m * cs2);
-  return acc * chi;
+  const RowPoly<T> poly = row_poly(vc, cs2, T(i - c0 * tile) + (a == 0 ? T(0.5) : T(0)),
+                                   T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0)));
+  return poly.at(T(k - c2 * tile) + (a == 2 ? T(0.5) : T(0))) * chi;
 }
 
 // The reduced branch's face value w_a = ffw_a * (-u_a) with u_a expanded
@@ -255,27 +269,54 @@ __device__ __forceinline__ void precond_z(const T* __restrict__ f, long long q, 
   }
 }
 
-// Sums each of the N per-thread values acc[m] over the thread block (warp
-// shuffles, then one shared-memory row per warp); thread m < N returns the
-// block's total of value m, the others 0.  A fixed order: no atomics.
+// Sums each of the N per-thread values acc[m] over the threads of a block
+// of at most kThreads in x and y, tid = threadIdx.x + threadIdx.y *
+// blockDim.x (warp shuffles, then the warps' rows in order; a last warp
+// may be partial).  Every thread of the block must call it.  Returns the
+// shared array of the N totals, which every thread may read.  A fixed
+// order: no atomics.
 template <typename T, int N>
-__device__ __forceinline__ T block_sum(const T (&acc)[N]) {
+__device__ __forceinline__ const T* block_sums(const T (&acc)[N]) {
   __shared__ T part[kThreads / 32][N];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __shared__ T total[N];
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.x + threadIdx.y * blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = (nthreads + 31) >> 5;
+  const int live = min(32, nthreads - 32 * warp);
+  const unsigned mask = live == 32 ? 0xffffffffu : (1u << live) - 1u;
 #pragma unroll
   for (int m = 0; m < N; ++m) {
     T v = acc[m];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    for (int off = 16; off > 0; off >>= 1) {
+      const T o = __shfl_down_sync(mask, v, off);
+      if (lane + off < live) v += o;
+    }
     if (lane == 0) part[warp][m] = v;
   }
   __syncthreads();
-  T v = T(0);
-  if (threadIdx.x < N) {
-    for (int w = 0; w < kThreads / 32; ++w) v += part[w][threadIdx.x];
+  for (int m = tid; m < N; m += nthreads) {
+    T v = T(0);
+    for (int w = 0; w < nwarps; ++w) v += part[w][m];
+    total[m] = v;
   }
-  return v;
+  __syncthreads();
+  return total;
 }
+
+// block_sums over a one-dimensional block: thread m < N returns the
+// block's total of value m, the others 0.
+template <typename T, int N>
+__device__ __forceinline__ T block_sum(const T (&acc)[N]) {
+  const T* total = block_sums(acc);
+  return threadIdx.x < N ? total[threadIdx.x] : T(0);
+}
+
+// N consecutive values of one 16-byte (or smaller) aligned access.
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
 
 inline Dims dims(int nx, int ny, int nz) { return Dims{nx, ny, nz, (long long)nx * ny * nz}; }
 

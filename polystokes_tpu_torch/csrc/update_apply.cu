@@ -34,7 +34,7 @@
 //   ffw_a (-u_a) at the slot and its six transpose neighbours, each u_a
 //   evaluated from the small v [cs0, cs1, 3K, cs2] in the neighbour's own
 //   cube (stencil.cuh face_w_v / expand_at, the polynomial expand_kernel
-//   evaluates).  The TPU kernel cut its halo window into segments that each
+//   evaluates along a row in packed_apply.cu).  The TPU kernel cut its halo window into segments that each
 //   lie in one cube; a thread that indexes the cube of every point it reads
 //   needs no such decomposition.  u never reaches device memory.  Bound:
 //   c[:7], the masks c[14:17], out_grid, x, r, p and the factors read, 21

@@ -51,6 +51,7 @@ into ``build/polystokes_tpu_torch/`` on first use and loaded with ctypes:
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import shutil
 import subprocess
@@ -75,6 +76,7 @@ N_COEFF = 17
 N_COEFF_UNIFORM = 14  # without the reduced-face masks
 K = 10  # quadratic monomials per axis
 PAP_BLOCK = 256  # slots per <x, A x> partial of apply_uniform_pap (the kernel's thread block)
+KERNEL_THREADS = 256  # most threads in a block of any kernel (csrc/stencil.cuh kThreads)
 
 LAUNCHES = {name: 0 for name in ("moments", "expand", "apply_reduced", "grid_mom_pap", "finish", "apply_uniform",
                                  "apply_uniform_pap", "transpose_u", "forward_s", "combine", "cg_update",
@@ -350,7 +352,7 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", 
 _LIB = None
 # (entry point, pointer arguments, int arguments) of each kernel; every
 # entry point also takes the stream and exists for f32 and f64
-_SIGNATURES = (("moments", 3, 4), ("expand", 3, 4), ("apply_reduced", 4, 3), ("grid_mom_pap", 5, 4),
+_SIGNATURES = (("moments", 3, 4), ("expand", 3, 7), ("apply_reduced", 4, 3), ("grid_mom_pap", 5, 6),
                ("finish", 4, 3), ("apply_uniform", 3, 3), ("apply_uniform_pap", 4, 3), ("transpose_u", 3, 3),
                ("forward_s", 3, 3), ("combine", 5, 3), ("cg_update", 10, 4), ("finish_update", 12, 4),
                ("exp_finish_update", 12, 5))
@@ -416,6 +418,9 @@ def _library():
                 fn = getattr(lib, f"ps_{name}_{dt}")
                 fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
                 fn.restype = i32
+            for query in ("blocks_per_sm", "window_bytes"):
+                fn = getattr(lib, f"ps_grid_mom_pap_{query}_{dt}")
+                fn.argtypes, fn.restype = [i32, i32], i32
         _LIB = lib
     return _LIB
 
@@ -458,6 +463,44 @@ def _cube_dims(res, T):
     return tuple(n // T for n in res)
 
 
+@functools.lru_cache(maxsize=None)
+def expand_plan(res, T: int, itemsize: int, aligned: bool):
+    """(vec, bx, by), the launch geometry of the expand kernel: each thread
+    takes vec consecutive z slots of one cube, 16 bytes where nz and T are
+    multiples of vec and the pointers are 16-byte aligned, else 1; a block
+    is bx threads along z by by rows along y; the grid covers
+    (nz / vec, ny, nx)."""
+    vec = 16 // itemsize
+    if not aligned or res[2] % vec or T % vec:
+        vec = 1
+    bx = min(res[2] // vec, 32)
+    return vec, bx, min(KERNEL_THREADS // bx, res[1])
+
+
+@functools.lru_cache(maxsize=None)
+def grid_mom_plan(T: int):
+    """(by, bz), the column of a cube that one block of the grid_mom_pap
+    kernel owns and marches along x: the widest bz dividing T, then the
+    tallest by dividing T, with by * bz within the kernel's block of
+    KERNEL_THREADS.  The whole plane, one block per cube, up to T 16; above,
+    a cube takes (T / by) * (T / bz) blocks, whose moments and partials the
+    wrapper sums in a fixed order."""
+    divisors = [n for n in range(T, 0, -1) if T % n == 0]
+    bz = next(n for n in divisors if n <= KERNEL_THREADS)
+    return next(n for n in divisors if n * bz <= KERNEL_THREADS), bz
+
+
+def grid_mom_pap_occupancy(dtype, by: int, bz: int):
+    """(window bytes, blocks per SM) of the grid_mom_pap kernel at the column
+    (by, bz): its dynamic shared memory and the blocks the CUDA occupancy
+    calculator lets reside on one SM (registers, shared memory, threads)."""
+    dt = "f32" if dtype == torch.float32 else "f64"
+    n = getattr(_library(), f"ps_grid_mom_pap_blocks_per_sm_{dt}")(by, bz)
+    if n < 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
+    return getattr(_library(), f"ps_grid_mom_pap_window_bytes_{dt}")(by, bz), n
+
+
 def moments_packed(xp, coeffs, T: int):
     """[cs0, cs1, 3K, cs2] per-cube moments of the reduced-masked s."""
     res = tuple(xp.shape[1:])
@@ -478,7 +521,8 @@ def expand_packed(v_origin, red_packed, T: int):
     if dev == "cpu":
         return expand_packed_plain(v_origin, red_packed, T)
     u = torch.empty((3,) + res, dtype=v_origin.dtype, device=v_origin.device)
-    _launch("expand", (v_origin, red_packed, u), (*res, T), v_origin.dtype)
+    plan = expand_plan(res, T, u.element_size(), aligned=red_packed.data_ptr() % 16 == 0 and u.data_ptr() % 16 == 0)
+    _launch("expand", (v_origin, red_packed, u), (*res, T, *plan), v_origin.dtype)
     return u
 
 
@@ -498,15 +542,28 @@ def grid_mom_pap_packed(xp, coeffs, T: int):
     [ncubes]): the grid branch of A x with its mass terms, the per-cube
     moments of the reduced-masked s, and per-cube partials of <x, out_grid>."""
     res = tuple(xp.shape[1:])
-    cs = _cube_dims(res, T)
+    _cube_dims(res, T)
     dev = _check("grid_mom_pap_packed", (xp, coeffs), ((7,) + res, (N_COEFF,) + res))
     if dev == "cpu":
         return grid_mom_pap_packed_plain(xp, coeffs, T)
+    return _grid_mom_pap_cuda(xp, coeffs, T, *grid_mom_plan(T))
+
+
+def _grid_mom_pap_cuda(xp, coeffs, T: int, by: int, bz: int):
+    """grid_mom_pap_packed's kernel at the column geometry (by, bz): each of
+    a cube's (T / by) * (T / bz) blocks writes its own moments and partial,
+    summed here over dim 0 (a fixed order) when there are several."""
+    res = tuple(xp.shape[1:])
+    cs = _cube_dims(res, T)
+    parts = (T // by) * (T // bz)
+    lead = (parts,) if parts > 1 else ()
     out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
-    mom = torch.empty((cs[0], cs[1], 3 * K, cs[2]), dtype=xp.dtype, device=xp.device)
-    partials = torch.empty((cs[0] * cs[1] * cs[2],), dtype=xp.dtype, device=xp.device)
-    _launch("grid_mom_pap", (xp, coeffs, out, mom, partials), (*res, T), xp.dtype)
-    return out, mom, partials
+    mom = torch.empty(lead + (cs[0], cs[1], 3 * K, cs[2]), dtype=xp.dtype, device=xp.device)
+    partials = torch.empty(lead + (cs[0] * cs[1] * cs[2],), dtype=xp.dtype, device=xp.device)
+    _launch("grid_mom_pap", (xp, coeffs, out, mom, partials), (*res, T, by, bz), xp.dtype)
+    if parts == 1:
+        return out, mom, partials
+    return out, mom.sum(dim=0), partials.sum(dim=0)
 
 
 def finish_packed(coeffs, out_grid, up):

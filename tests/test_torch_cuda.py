@@ -107,13 +107,13 @@ def test_cuda_step_matches_cpu(reduced, fuse_pap):
         assert float((out["cuda"][a] - out["cpu"][a]).abs().max()) <= 2e-4 * scale
 
 
-def _solid_setup(dtype):
+def _solid_setup(dtype, tile=T):
     """The solid-cut floor of the JAX tests' _solid_case at 32^3 on the
     card: a liquid box on a tilted floor that cuts faces of every family."""
     grid = Grid(res=(32, 32, 32), dx=1.0 / 32)
     scene = _base(grid, sdf.box((0.1, 0.1, 0.1), (0.9, 0.9, 0.9)), sdf.plane((0.15, 0.1, 1.0), 0.23), dtype, "cuda",
                   dt=1 / 48, viscosity=50.0)
-    params = SolverParams(dtype=dtype, tile_size=T, max_regions=64)
+    params = SolverParams(dtype=dtype, tile_size=tile, max_regions=64)
     cls, asm = tsolver._setup(grid, scene, params)
     cut = sum(int((is_active(cls.face_labels[a]) & (asm.ffw[a] > 0) & (asm.ffw[a] < 1)).sum()) for a in range(3))
     assert cut > 0 and int(cls.n_regions) >= 1
