@@ -10,8 +10,9 @@ Phases (any failed check exits non-zero before the final line):
   1. build the kernels of polystokes_tpu_torch/csrc with nvcc (sm_90a, one
      nvcc per source, all started together); print each kernel's
      registers, static shared memory and spill bytes from the ptxas report,
-     and grid_mom_pap's planned column, its window's dynamic shared memory
-     and the blocks per SM the occupancy calculator allows;
+     and for grid_mom_pap and the two uniform kernels the planned geometry
+     (the column, and the uniform run at 128^3), the window's dynamic
+     shared memory and the blocks per SM the occupancy calculator allows;
   2. each of the thirteen kernels against its plain PyTorch twin at the
      main-path shapes (honey_coil 128^3, tile 16, float32; the uniform
      kernels on the uniform setup's 14-channel stack): max |diff| <= 1e-5
@@ -19,7 +20,10 @@ Phases (any failed check exits non-zero before the final line):
      three dots of the update kernels, with median times over 20 launches
      (each timed alone, host call included, as in earlier records), the
      device time of one launch (20 launches replayed from a CUDA graph) and
-     the HBM bound.  The update kernels run on the real CELL_ARROW
+     the HBM bound; then the device time of both uniform kernels at each
+     geometry (column and run) of UNIFORM_GEOMETRIES, from which
+     packed_apply.uniform_plan takes its pick.  The update kernels run on
+     the real CELL_ARROW
      (kind arrow) and DIAGONAL (kind diag) factors: cg_update with every
      kind, finish_update and exp_finish_update with arrow and none; the
      kernel table reports kind arrow, the kind of every path below;
@@ -43,8 +47,9 @@ Phases (any failed check exits non-zero before the final line):
   6. the fuse_pap=False path at 128^3: moments, expand and apply_reduced
      once per apply, the others 0;
   7. Path B, the uniform baseline (do_reduced_regions=False) at 128^3 with
-     fuse_pap=True (apply_uniform 1, apply_uniform_pap a - 1) and
-     fuse_pap=False (apply_uniform once per apply); no reduced kernel;
+     fuse_pap=True (apply_uniform 1, apply_uniform_pap a - 1), warm and
+     twice timed with phase 4's checks, and fuse_pap=False (apply_uniform
+     once per apply); no reduced kernel;
   8. Path F, fuse_update with fuse_expand (CELL_ARROW) at 128^3, warm and
      twice timed with phase 4's checks: moments, expand and apply_reduced 1
      (pcg_init), grid_mom_pap and exp_finish_update a - 1, the others 0
@@ -54,8 +59,8 @@ Phases (any failed check exits non-zero before the final line):
      step with fuse_update): apply_uniform 1, apply_uniform_pap and
      cg_update a - 1; REGION_ARROW with fuse_update, which has no fused
      update in either package: phase 5's counts, no update kernel;
- 10. Path A on the card against the port on the CPU at 32^3, float32,
-     tol 1e-5: both converge, velocities within 2e-4 max |v|;
+ 10. Path A and Path B on the card against the port on the CPU at 32^3,
+     float32, tol 1e-5: both converge, velocities within 2e-4 max |v|;
  11. at 32^3 on the card, tol 1e-5: IDENTITY and DIAGONAL with fuse_update
      against the same step without it, and Path F on the card against the
      CPU: all converge, velocities within 2e-4 max |v|.
@@ -83,6 +88,10 @@ KERNEL_RTOL = 1e-5  # f32 sums of up to 4096 terms in another order than the twi
 SYM_RTOL = 1e-5
 PAP_RTOL = 1e-5  # the fused <x, A x> against the unfused one: f32, the symmetry bound
 VEL_ATOL = 2e-4  # times max |v|: the packed-against-XLA bound of the JAX tests
+# (by, bz, L) of the uniform kernels timed in phase 2 at 128^3: 16 x 16 as
+# grid_mom_pap's column, 8 x 32 and 4 x 32 for 128-byte z rows, 4 x 64 for
+# 256-byte ones, runs of 16-32 planes
+UNIFORM_GEOMETRIES = ((16, 16, 16), (16, 16, 32), (8, 32, 16), (8, 32, 24), (8, 32, 32), (4, 32, 32), (4, 64, 32))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM at 700 W
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PA = "polystokes_tpu/pallas_apply.py"
@@ -280,11 +289,16 @@ def main() -> None:
     for k in ptxas_summary(ptxas):
         print(f"  ptxas: {k['entry']}: {k['registers']} registers, {k['smem']} bytes static shared memory, "
               f"spill stores {k['spill_stores']} B, spill loads {k['spill_loads']} B", flush=True)
+    uniform_plan = pa.uniform_plan((N_MAIN,) * 3)
     for dtype in (torch.float32, torch.float64):
         by, bz = pa.grid_mom_plan(TILE)
         window, blocks = pa.grid_mom_pap_occupancy(dtype, by, bz)
         print(f"  grid_mom_pap {dtype} at tile {TILE}: column {by} x {bz}, "
               f"{window} bytes dynamic shared memory, {blocks} blocks per SM", flush=True)
+        for name in ("apply_uniform", "apply_uniform_pap"):
+            window, blocks = pa.window_occupancy(name, dtype, *uniform_plan[:2])
+            print(f"  {name} {dtype} at {N_MAIN}^3: column {uniform_plan[0]} x {uniform_plan[1]}, run "
+                  f"{uniform_plan[2]}, {window} bytes dynamic shared memory, {blocks} blocks per SM", flush=True)
 
     # -- phase 2: each kernel against its twin at the main-path shapes
     t0 = time.perf_counter()
@@ -353,6 +367,14 @@ def main() -> None:
         table[name] = {"name": name, "route": "cuda", "source": f"polystokes_tpu_torch/csrc/{src}", "replaces": replaces,
                        "launches": None, **measure(name, kernel, twin, small_bytes), "library_ms": None,
                        "launches_by_path": {}}
+
+    # the uniform kernels at each geometry of the sweep (device time)
+    for geo in UNIFORM_GEOMETRIES:
+        for name, pap in (("apply_uniform", False), ("apply_uniform_pap", True)):
+            ms = graph_ms(lambda: pa._apply_uniform_cuda(xu, coeffs_u, *geo, pap=pap))
+            print(f"phase 2 {name} geometry (by, bz, L) {geo}: device {ms:.4f} ms, "
+                  f"{100 * table[name]['bound_ms'] / ms:.1f} % of the bound"
+                  f"{' (the plan)' if geo == pa.uniform_plan(grid.res) else ''}", flush=True)
 
     # the update kernels: kernel 9 with every preconditioner kind, 10 and 11
     # with arrow and none, on the real CELL_ARROW and DIAGONAL factors; the
@@ -500,9 +522,14 @@ def main() -> None:
 
     _, st, launches = drive(f"phase 6 fuse_pap=False {N_MAIN}^3", p_a.replace(fuse_pap=False), lambda n: n >= 1)
     check_launches("unfused", "phase 6", st, launches)
-    for fuse, path in ((True, "B_fused"), (False, "B_unfused")):
-        _, st, launches = drive(f"phase 7 Path B fuse_pap={fuse} {N_MAIN}^3", p_b.replace(fuse_pap=fuse), lambda n: n == 0)
-        check_launches(path, f"phase 7 {path}", st, launches)
+    drive(f"phase 7 Path B fuse_pap=True {N_MAIN}^3 warm", p_b, lambda n: n == 0)
+    vel1, sb1, l1 = drive(f"phase 7 Path B fuse_pap=True {N_MAIN}^3 timed 1", p_b, lambda n: n == 0)
+    vel2, sb2, l2 = drive(f"phase 7 Path B fuse_pap=True {N_MAIN}^3 timed 2", p_b, lambda n: n == 0)
+    check_launches("B_fused", "phase 7 B_fused", sb1, l1)
+    check_launches("B_fused", "phase 7 B_fused", sb2, l2)
+    check_repeat("phase 7 Path B", vel1, sb1, vel2, sb2)
+    _, st, launches = drive(f"phase 7 Path B fuse_pap=False {N_MAIN}^3", p_b.replace(fuse_pap=False), lambda n: n == 0)
+    check_launches("B_unfused", "phase 7 B_unfused", st, launches)
 
     # -- phase 8: Path F, fuse_update with fuse_expand: the update kernel
     # expands, finishes and updates in one pass
@@ -556,10 +583,11 @@ def main() -> None:
         if not dv <= VEL_ATOL * vmax:
             fail(f"{label}: velocities differ: {dv} > {VEL_ATOL} * {vmax}")
 
-    # -- phase 10: Path A on the card against the CPU port at 32^3
+    # -- phase 10: Paths A and B on the card against the CPU port at 32^3
     p32 = params(torch.float32, 1e-5, 12000, fuse_pap=True)
-    print(f"phase 10 Path A {N_CPU}^3, card and CPU:", flush=True)
-    agree("phase 10 velocities, card against CPU", step_32("cuda", p32), step_32("cpu", p32))
+    for label, p in (("Path A", p32), ("Path B", p32.replace(do_reduced_regions=False))):
+        print(f"phase 10 {label} {N_CPU}^3, card and CPU:", flush=True)
+        agree(f"phase 10 {label} velocities, card against CPU", step_32("cuda", p), step_32("cpu", p))
 
     # -- phase 11: at 32^3 on the card, IDENTITY and DIAGONAL with the fused
     # update against the unfused loop (identity-PCG needs thousands of

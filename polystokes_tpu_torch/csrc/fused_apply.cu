@@ -1,38 +1,53 @@
-// The four kernels of the fused apply (fuse_pap) and of the uniform apply,
-// by hand for Hopper (sm_90a).  Like packed_apply.cu: each launches on the
+// The kernels of the fused apply (fuse_pap) and of the uniform apply, by
+// hand for Hopper (sm_90a).  Like packed_apply.cu: each launches on the
 // caller's stream, allocates nothing and returns cudaGetLastError()
 // through a plain C entry point (loaded with ctypes by
 // polystokes_tpu_torch/packed_apply.py).  Bounds are HBM bytes at 128^3 in
 // f32 (8.39 MB per channel) over 3.35 TB/s; the arithmetic, some 200-300
 // flops per slot, is two orders of magnitude below the memory time.
 //
-// grid_mom_pap_kernel replaces grid_mom_pap_packed (_make_grid_mom_kernel,
-//   _forward_s, _transpose_out, _mom_block in polystokes_tpu/pallas_apply.py).
-//   In one pass: the grid branch of A x with its mass terms (apply_reduced
+// plane_window_kernel<T, MODE> is three kernels on one march:
+//   WINDOW_GRID_MOM replaces grid_mom_pap_packed (_make_grid_mom_kernel,
+//   _forward_s, _transpose_out, _mom_block in polystokes_tpu/pallas_apply.py):
+//   in one pass the grid branch of A x with its mass terms (apply_reduced
 //   with u = 0), the per-cube origin moments of the reduced-masked s, and
 //   one partial of <x, out_grid> per cube.  Bound: 24 channels read, 7
-//   written, about 260 MB, 0.078 ms.  Design: a plane window in shared
-//   memory.  A block of bz x by threads owns a by x bz column of one cube in
-//   (y, z) (packed_apply.py grid_mom_plan: the whole T x T plane, one block
-//   per cube, up to T 16) and marches along x.  Each step stages, over the column
-//   and its one-slot ring in y and z, g_a = clw (p - tau_aa) and h_e = elw_e
-//   tau_e of plane m + 2 (each input read once, coalesced), turns g, h of
-//   planes m - 1 .. m + 1 into s_a and w_a of plane m (the thread's slot,
-//   and the ring slots where a neighbour reads w), and writes out of plane
-//   m - 2 through transpose_contrib, whose 9 neighbour w come from shared
-//   memory through a functor.  A step reads only planes that earlier steps
-//   wrote, so one barrier a step suffices, and its ring work is assigned
-//   to threads before the march, so a step is one block of code whose
-//   global loads are all in flight together (the kernel is held by load
-//   latency more than by bytes).  The moments keep 9 sums per thread
-//   (chi s px^e, e = 0..2, per axis): a thread's y and z are fixed
-//   over the march, so its 30 moments are formed once at the end and
-//   block_sums adds them in a fixed order.  Where a cube needs several
-//   blocks (T above 16), each writes its own moments and partial and the
-//   wrapper sums them over a leading dimension.  No atomics: the result
-//   does not depend on block order.  The window (46 656 B at T 16 in f32,
-//   twice that in f64) may exceed the 48 KB a block gets by default: the
-//   launch then opts in to more (grid_mom_pap_opt_in).
+//   written, about 260 MB, 0.078 ms.
+//   WINDOW_UNIFORM replaces apply_uniform_packed (_apply_kernel_uniform) and
+//   WINDOW_UNIFORM_PAP apply_uniform_pap_packed (_grid_uniform_pap_kernel):
+//   the uniform A x (apply_reduced without u), with PAP one partial of
+//   <x, A x> per block.  Reads channels 0-13 only, so the 14-channel uniform
+//   stack and the 17-channel one both work.  Bound: 21 channels read, 7
+//   written, about 235 MB, 0.070 ms.
+//   Design: a plane window in shared memory.  A block of bz x by threads
+//   owns a by x bz column in (y, z) and marches along x over a run of
+//   planes: grid_mom_pap a column of one cube over its T planes
+//   (packed_apply.py grid_mom_plan: the whole T x T plane, one block per
+//   cube, up to T 16), the uniform apply a column over a run of L planes
+//   (uniform_plan: 4 x 64 over 32 planes at 128^3), with a grid that
+//   ceil-divides the resolution: a thread whose slot lies outside the grid
+//   stages zeros, writes nothing and reaches every barrier, and the last run
+//   is clipped at nx.  Each step stages, over the column and its one-slot
+//   ring in y and z, g_a = clw (p - tau_aa) and h_e = elw_e tau_e of plane
+//   m + 2 (each input read once, coalesced), turns g, h of planes m - 1 ..
+//   m + 1 into s_a and w_a of plane m (the thread's slot, and the ring
+//   slots where a neighbour reads w), and writes out of plane m - 2 through
+//   transpose_contrib, whose 9 neighbour w come from shared memory through
+//   a functor.  A step reads only planes that earlier steps wrote, so one
+//   barrier a step suffices, and its ring work is assigned to threads
+//   before the march, so a step is one block of code whose global loads
+//   are all in flight together (the kernel is held by load latency more
+//   than by bytes).  The 3-D grid gives each thread its (j, k) without
+//   index division.  The moments keep 9 sums per thread (chi s px^e, e =
+//   0..2, per axis): a thread's y and z are fixed over the march, so its 30
+//   moments are formed once at the end and block_sums adds them in a fixed
+//   order.  Where a cube needs several blocks (T above 16), each writes its
+//   own moments and partial and the wrapper sums them over a leading
+//   dimension; the uniform partials are one per block, summed by the
+//   caller.  No atomics: the result does not depend on block order.  The
+//   window (46 656 B at T 16 in f32, 57 024 B for the uniform 4 x 64
+//   column, twice that in f64) may exceed the 48 KB a block gets by
+//   default: the launch then opts in to more (window_opt_in).
 //
 // finish_kernel replaces finish_packed (_finish_kernel, _transpose_contrib).
 //   out = out_grid + [G Dt]^T (-u): the reduced branch, no mass terms (they
@@ -40,39 +55,43 @@
 //   written, about 201 MB, 0.060 ms.  Design: one thread per slot; w_a =
 //   ffw_a (-u_a) at the slot and its neighbours, with the transpose's own
 //   ffw factor.  Writes a new array, as JAX does.
-//
-// apply_uniform_kernel replaces apply_uniform_packed (_apply_kernel_uniform)
-//   and, with PAP, apply_uniform_pap_packed (_grid_uniform_pap_kernel).  The
-//   uniform A x (apply_reduced without u), and with PAP one partial of
-//   <x, A x> per thread block.  Reads channels 0-13 only, so the 14-channel
-//   uniform stack and the 17-channel one both work.  Bound: 21 channels
-//   read, 7 written, about 235 MB, 0.070 ms.  Design: one thread per slot,
-//   the apply_reduced_kernel structure.
 #include <cuda_runtime.h>
 
 #include "stencil.cuh"
 
 namespace ps {
 
-// The window of grid_mom_pap_kernel on the block's by x bz column and its
+// The window of plane_window_kernel on the block's by x bz column and its
 // one-slot ring in (y, z): a ring of 4 planes of g_a, h_e (6 values) and of
 // 4 planes of w_a (3 values).
-inline int grid_mom_window_bytes(int by, int bz, int itemsize) { return 4 * (6 + 3) * (by + 2) * (bz + 2) * itemsize; }
+inline int window_bytes(int by, int bz, int itemsize) { return 4 * (6 + 3) * (by + 2) * (bz + 2) * itemsize; }
+
+// What a plane-window kernel writes beside the grid branch of A x:
+// grid_mom_pap's moments and per-cube partials, nothing (the uniform apply)
+// or one <x, A x> partial per block (the uniform apply with PAP).
+enum : int { WINDOW_GRID_MOM = 0, WINDOW_UNIFORM = 1, WINDOW_UNIFORM_PAP = 2 };
 
 // Two blocks of 256 threads per SM: at most 128 registers a thread, which
 // the step's loads, all in flight together, need.
-template <typename T>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
-grid_mom_pap_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restrict__ out, T* __restrict__ mom,
-                    T* __restrict__ partials, Dims d, int tile) {
+plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restrict__ out, T* __restrict__ mom,
+                    T* __restrict__ partials, Dims d, int run) {
+  constexpr bool MOM = MODE == WINDOW_GRID_MOM;
   extern __shared__ __align__(16) unsigned char window_raw[];
-  // block (bz, by) threads: column z0.., y0.. of cube (c0, c1, c2), one
-  // thread per (j, k) of the column on every plane
+  // block (bz, by) threads: column z0.., y0.. over planes x0 .. x_end - 1,
+  // one thread per (j, k) of the column on every plane.  grid_mom_pap: the
+  // column lies in cube (c0, c1, c2) and the run is its tile planes; the
+  // uniform apply: runs of `run` planes, the last clipped at nx, and
+  // columns that may pass ny and nz
   const int bz = blockDim.x, by = blockDim.y, nthreads = bz * by;
   const int tid = threadIdx.y * bz + threadIdx.x;
-  const int z0 = blockIdx.x * bz, y0 = blockIdx.y * by, c0 = blockIdx.z;
-  const int c1 = y0 / tile, c2 = z0 / tile, x0 = c0 * tile, x_end = x0 + tile;
+  const int z0 = blockIdx.x * bz, y0 = blockIdx.y * by, x0 = blockIdx.z * run;
+  const int x_end = MOM ? x0 + run : min(x0 + run, d.nx);
   const int j = y0 + threadIdx.y, k = z0 + threadIdx.x;
+  // a thread whose slot lies outside the grid stages zeros, writes nothing
+  // and reaches every barrier
+  const bool own_in = MOM || (j < d.ny && k < d.nz);
   // window slot of (j', k'): (j' - y0 + 1) * rz + k' - z0 + 1
   const int rz = bz + 2, ring = (by + 2) * rz;
   const int own = (threadIdx.y + 1) * rz + threadIdx.x + 1;
@@ -137,23 +156,26 @@ grid_mom_pap_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
     for (int e = 0; e < 3; ++e) sm_p[a][e] = T(0);
   T dot = T(0);
 
-  // w_a of plane i at the thread's slot, every axis, and the moments of a
-  // plane of the cube.  On the halo planes x0 - 1 and x_end only w_0 and
-  // w_1, w_2 are read (they may use a plane of g, h that was not staged).
+  // w_a of plane i at the thread's slot, every axis, and (grid_mom_pap) the
+  // moments of a plane of the cube.  On the halo planes x0 - 1 and x_end
+  // only w_0 and w_1, w_2 are read (they may use a plane of g, h that was
+  // not staged); a run clipped at nx has x_end = nx, whose g, h stage as 0.
   auto stage_w_own = [&](int i) {
-    const bool in = i >= 0 && i < d.nx;
-    const bool moment = i >= x0 && i < x_end;
+    const bool in = i >= 0 && i < d.nx && own_in;
     const long long q = in ? d.at(i, j, k) : 0;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const T s = __ldg(c + (C_FFW + a) * d.plane + q) * s_over_ffw(i, a, own);
       const T w = grid_w_from_s(c, a, q, d, s);
       w_of(i, a)[own] = in ? w : T(0);
-      const T sm = moment ? s * __ldg(c + (C_RED + a) * d.plane + q) : T(0);
-      const T px = T(i - x0) + (a == 0 ? T(0.5) : T(0));
-      sm_p[a][0] += sm;
-      sm_p[a][1] += sm * px;
-      sm_p[a][2] += sm * (px * px);
+      if constexpr (MOM) {
+        const bool moment = i >= x0 && i < x_end;
+        const T sm = moment ? s * __ldg(c + (C_RED + a) * d.plane + q) : T(0);
+        const T px = T(i - x0) + (a == 0 ? T(0.5) : T(0));
+        sm_p[a][0] += sm;
+        sm_p[a][1] += sm * px;
+        sm_p[a][2] += sm * (px * px);
+      }
     }
   };
   // w of plane i at window slot (rj, rk) on axis a
@@ -185,6 +207,7 @@ grid_mom_pap_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
   // out, the mass terms and the <x, out> partial of plane i at the
   // thread's slot, from w on planes i - 1, i and i + 1
   auto write_out = [&](int i) {
+    if (!own_in) return;
     const T* prev = w_of(i - 1, 0);
     const T* cur = w_of(i, 0);
     const T* next = w_of(i + 1, 0);
@@ -256,41 +279,50 @@ grid_mom_pap_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
   for (int m = max(x0 + 2, x_end - 1); m <= x_end + 1; ++m)
     step(m, m + 2 <= x_end, m <= x_end, m >= x0 && m < x_end, m - 2 >= x0);
 
-  // acc[a*K + m]: this thread's share of the moments, monomials
-  // [1, x, y, z, x^2, xy, xz, y^2, yz, z^2] at cube-local face positions
-  // (+0.5 on the face axis); acc[3K]: the <x, out_grid> partial
-  T acc[3 * K + 1];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const T py = T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0));
-    const T pz = T(k - c2 * tile) + (a == 2 ? T(0.5) : T(0));
-    const T s0 = sm_p[a][0], s1 = sm_p[a][1];
-    T* m = acc + a * K;
-    m[0] = s0;
-    m[1] = s1;
-    m[2] = py * s0;
-    m[3] = pz * s0;
-    m[4] = sm_p[a][2];
-    m[5] = py * s1;
-    m[6] = pz * s1;
-    m[7] = (py * py) * s0;
-    m[8] = (py * pz) * s0;
-    m[9] = (pz * pz) * s0;
+  if constexpr (MODE == WINDOW_UNIFORM_PAP) {
+    // one partial per block, blocks in (run, y column, z column) order
+    const T acc[1] = {dot};
+    const T* total = block_sums(acc);
+    if (tid == 0) partials[((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = total[0];
   }
-  acc[3 * K] = dot;
-  const T* total = block_sums(acc);
+  if constexpr (MOM) {
+    // acc[a*K + m]: this thread's share of the moments, monomials
+    // [1, x, y, z, x^2, xy, xz, y^2, yz, z^2] at cube-local face positions
+    // (+0.5 on the face axis); acc[3K]: the <x, out_grid> partial
+    const int tile = run, c0 = blockIdx.z, c1 = y0 / tile, c2 = z0 / tile;
+    T acc[3 * K + 1];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const T py = T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0));
+      const T pz = T(k - c2 * tile) + (a == 2 ? T(0.5) : T(0));
+      const T s0 = sm_p[a][0], s1 = sm_p[a][1];
+      T* m = acc + a * K;
+      m[0] = s0;
+      m[1] = s1;
+      m[2] = py * s0;
+      m[3] = pz * s0;
+      m[4] = sm_p[a][2];
+      m[5] = py * s1;
+      m[6] = pz * s1;
+      m[7] = (py * py) * s0;
+      m[8] = (py * pz) * s0;
+      m[9] = (pz * pz) * s0;
+    }
+    acc[3 * K] = dot;
+    const T* total = block_sums(acc);
 
-  // part (column) index of the block within its cube, and its slice of
-  // mom [parts, cs0, cs1, 3K, cs2] and partials [parts, ncubes]
-  const int cs0 = d.nx / tile, cs1 = d.ny / tile, cs2 = d.nz / tile;
-  const int per_z = tile / bz;
-  const int part = (blockIdx.y - c1 * (tile / by)) * per_z + (blockIdx.x - c2 * per_z);
-  const long long ncubes = (long long)cs0 * cs1 * cs2;
-  const long long cube = ((long long)c0 * cs1 + c1) * cs2 + c2;
-  T* mom_part = mom + part * ncubes * (3 * K);
-  for (int m = tid; m < 3 * K + 1; m += nthreads) {
-    if (m < 3 * K) mom_part[(((long long)c0 * cs1 + c1) * (3 * K) + m) * cs2 + c2] = total[m];
-    else partials[part * ncubes + cube] = total[m];
+    // part (column) index of the block within its cube, and its slice of
+    // mom [parts, cs0, cs1, 3K, cs2] and partials [parts, ncubes]
+    const int cs0 = d.nx / tile, cs1 = d.ny / tile, cs2 = d.nz / tile;
+    const int per_z = tile / bz;
+    const int part = (blockIdx.y - c1 * (tile / by)) * per_z + (blockIdx.x - c2 * per_z);
+    const long long ncubes = (long long)cs0 * cs1 * cs2;
+    const long long cube = ((long long)c0 * cs1 + c1) * cs2 + c2;
+    T* mom_part = mom + part * ncubes * (3 * K);
+    for (int m = tid; m < 3 * K + 1; m += nthreads) {
+      if (m < 3 * K) mom_part[(((long long)c0 * cs1 + c1) * (3 * K) + m) * cs2 + c2] = total[m];
+      else partials[part * ncubes + cube] = total[m];
+    }
   }
 }
 
@@ -310,66 +342,43 @@ finish_kernel(const T* __restrict__ c, const T* __restrict__ out_grid, const T* 
   for (int ch = 0; ch < 7; ++ch) out[ch * d.plane + q] = __ldg(out_grid + ch * d.plane + q) + o[ch];
 }
 
-template <typename T, bool PAP>
-__global__ void __launch_bounds__(kThreads)
-apply_uniform_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restrict__ out, T* __restrict__ partials, Dims d) {
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  T dot[1] = {T(0)};
-  if (q < d.plane) {
-    const int k = (int)(q % d.nz), j = (int)((q / d.nz) % d.ny), i = (int)(q / ((long long)d.nz * d.ny));
-    auto wf = [&](int a, int ii, int jj, int kk) { return face_w_grid(x, c, a, ii, jj, kk, d); };
-    T w0[3], o[7];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) w0[a] = wf(a, i, j, k);
-    transpose_contrib(c, i, j, k, d, w0, wf, o);
-    sub_mass_terms(x, c, q, d, o);
-#pragma unroll
-    for (int ch = 0; ch < 7; ++ch) {
-      out[ch * d.plane + q] = o[ch];
-      if constexpr (PAP) dot[0] += __ldg(x + ch * d.plane + q) * o[ch];
-    }
-  }
-  if constexpr (PAP) {
-    // every thread of the block reaches the sum, in range or not
-    const T total = block_sum(dot);
-    if (threadIdx.x == 0) partials[blockIdx.x] = total;
-  }
-}
-
 // A window that, with block_sums' static arrays, passes the 48 KB of shared
 // memory a block gets by default needs the kernel's opt-in, up to what the
 // device allows (227 KB a block on the H100, room for every column of 256
 // slots in f64); a window beyond that is refused here and the launch fails.
-template <typename T>
-cudaError_t grid_mom_pap_opt_in(int bytes) {
+template <typename T, int MODE>
+cudaError_t window_opt_in(int bytes) {
   static const int static_bytes = [] {
     cudaFuncAttributes attr{};
-    return cudaFuncGetAttributes(&attr, grid_mom_pap_kernel<T>) == cudaSuccess ? (int)attr.sharedSizeBytes : 0;
+    return cudaFuncGetAttributes(&attr, plane_window_kernel<T, MODE>) == cudaSuccess ? (int)attr.sharedSizeBytes : 0;
   }();
   if (static_bytes + bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(grid_mom_pap_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return cudaFuncSetAttribute(plane_window_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T>
-int grid_mom_pap(const T* x, const T* c, T* out, T* mom, T* partials, int nx, int ny, int nz, int tile, int by, int bz,
+// One launch of plane_window_kernel: by x bz columns over runs of `run`
+// planes (grid_mom_pap: run = tile, and the column divides the cube).
+template <typename T, int MODE>
+int plane_window(const T* x, const T* c, T* out, T* mom, T* partials, int nx, int ny, int nz, int run, int by, int bz,
                  cudaStream_t stream) {
-  if (by < 1 || bz < 1 || by * bz > kThreads || tile % by || tile % bz) return (int)cudaErrorInvalidValue;
-  const int bytes = grid_mom_window_bytes(by, bz, (int)sizeof(T));
-  const cudaError_t err = grid_mom_pap_opt_in<T>(bytes);
+  if (by < 1 || bz < 1 || by * bz > kThreads || run < 1) return (int)cudaErrorInvalidValue;
+  if (MODE == WINDOW_GRID_MOM && (run % by || run % bz)) return (int)cudaErrorInvalidValue;
+  const int bytes = window_bytes(by, bz, (int)sizeof(T));
+  const cudaError_t err = window_opt_in<T, MODE>(bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)(nz / bz), (unsigned)(ny / by), (unsigned)(nx / tile));
-  grid_mom_pap_kernel<T><<<grid, dim3(bz, by), bytes, stream>>>(x, c, out, mom, partials, dims(nx, ny, nz), tile);
+  const dim3 grid((unsigned)((nz + bz - 1) / bz), (unsigned)((ny + by - 1) / by), (unsigned)((nx + run - 1) / run));
+  plane_window_kernel<T, MODE><<<grid, dim3(bz, by), bytes, stream>>>(x, c, out, mom, partials, dims(nx, ny, nz), run);
   return (int)cudaGetLastError();
 }
 
-// Thread blocks of grid_mom_pap_kernel resident on one SM at the column
+// Thread blocks of plane_window_kernel resident on one SM at the column
 // (by, bz), from the CUDA occupancy calculator; negative: a CUDA error.
-template <typename T>
-int grid_mom_pap_blocks_per_sm(int by, int bz) {
-  const int bytes = grid_mom_window_bytes(by, bz, (int)sizeof(T));
-  cudaError_t err = grid_mom_pap_opt_in<T>(bytes);
+template <typename T, int MODE>
+int window_blocks_per_sm(int by, int bz) {
+  const int bytes = window_bytes(by, bz, (int)sizeof(T));
+  cudaError_t err = window_opt_in<T, MODE>(bytes);
   int n = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, grid_mom_pap_kernel<T>, by * bz, bytes);
+  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, plane_window_kernel<T, MODE>, by * bz, bytes);
   return err == cudaSuccess ? n : -(int)err;
 }
 
@@ -380,46 +389,53 @@ int finish(const T* c, const T* out_grid, const T* u, T* out, int nx, int ny, in
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool PAP>
-int apply_uniform(const T* x, const T* c, T* out, T* partials, int nx, int ny, int nz, cudaStream_t stream) {
-  const Dims d = dims(nx, ny, nz);
-  apply_uniform_kernel<T, PAP><<<blocks_for(d.plane), kThreads, 0, stream>>>(x, c, out, partials, d);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace ps
 
 extern "C" {
 
 int ps_grid_mom_pap_f32(const float* x, const float* c, float* out, float* mom, float* partials, int nx, int ny, int nz, int tile,
                         int by, int bz, cudaStream_t s) {
-  return ps::grid_mom_pap(x, c, out, mom, partials, nx, ny, nz, tile, by, bz, s);
+  return ps::plane_window<float, ps::WINDOW_GRID_MOM>(x, c, out, mom, partials, nx, ny, nz, tile, by, bz, s);
 }
 int ps_grid_mom_pap_f64(const double* x, const double* c, double* out, double* mom, double* partials, int nx, int ny, int nz,
                         int tile, int by, int bz, cudaStream_t s) {
-  return ps::grid_mom_pap(x, c, out, mom, partials, nx, ny, nz, tile, by, bz, s);
+  return ps::plane_window<double, ps::WINDOW_GRID_MOM>(x, c, out, mom, partials, nx, ny, nz, tile, by, bz, s);
 }
-int ps_grid_mom_pap_blocks_per_sm_f32(int by, int bz) { return ps::grid_mom_pap_blocks_per_sm<float>(by, bz); }
-int ps_grid_mom_pap_blocks_per_sm_f64(int by, int bz) { return ps::grid_mom_pap_blocks_per_sm<double>(by, bz); }
-int ps_grid_mom_pap_window_bytes_f32(int by, int bz) { return ps::grid_mom_window_bytes(by, bz, (int)sizeof(float)); }
-int ps_grid_mom_pap_window_bytes_f64(int by, int bz) { return ps::grid_mom_window_bytes(by, bz, (int)sizeof(double)); }
 int ps_finish_f32(const float* c, const float* out_grid, const float* u, float* out, int nx, int ny, int nz, cudaStream_t s) {
   return ps::finish(c, out_grid, u, out, nx, ny, nz, s);
 }
 int ps_finish_f64(const double* c, const double* out_grid, const double* u, double* out, int nx, int ny, int nz, cudaStream_t s) {
   return ps::finish(c, out_grid, u, out, nx, ny, nz, s);
 }
-int ps_apply_uniform_f32(const float* x, const float* c, float* out, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::apply_uniform<float, false>(x, c, out, nullptr, nx, ny, nz, s);
+int ps_apply_uniform_f32(const float* x, const float* c, float* out, int nx, int ny, int nz, int by, int bz, int run,
+                         cudaStream_t s) {
+  return ps::plane_window<float, ps::WINDOW_UNIFORM>(x, c, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
 }
-int ps_apply_uniform_f64(const double* x, const double* c, double* out, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::apply_uniform<double, false>(x, c, out, nullptr, nx, ny, nz, s);
+int ps_apply_uniform_f64(const double* x, const double* c, double* out, int nx, int ny, int nz, int by, int bz, int run,
+                         cudaStream_t s) {
+  return ps::plane_window<double, ps::WINDOW_UNIFORM>(x, c, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
 }
-int ps_apply_uniform_pap_f32(const float* x, const float* c, float* out, float* partials, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::apply_uniform<float, true>(x, c, out, partials, nx, ny, nz, s);
+int ps_apply_uniform_pap_f32(const float* x, const float* c, float* out, float* partials, int nx, int ny, int nz, int by, int bz,
+                             int run, cudaStream_t s) {
+  return ps::plane_window<float, ps::WINDOW_UNIFORM_PAP>(x, c, out, nullptr, partials, nx, ny, nz, run, by, bz, s);
 }
-int ps_apply_uniform_pap_f64(const double* x, const double* c, double* out, double* partials, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::apply_uniform<double, true>(x, c, out, partials, nx, ny, nz, s);
+int ps_apply_uniform_pap_f64(const double* x, const double* c, double* out, double* partials, int nx, int ny, int nz, int by,
+                             int bz, int run, cudaStream_t s) {
+  return ps::plane_window<double, ps::WINDOW_UNIFORM_PAP>(x, c, out, nullptr, partials, nx, ny, nz, run, by, bz, s);
+}
+// the plane window's dynamic shared memory and blocks per SM at the column
+// (by, bz), for each kernel that marches it
+int ps_window_bytes_f32(int by, int bz) { return ps::window_bytes(by, bz, (int)sizeof(float)); }
+int ps_window_bytes_f64(int by, int bz) { return ps::window_bytes(by, bz, (int)sizeof(double)); }
+int ps_grid_mom_pap_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_GRID_MOM>(by, bz); }
+int ps_grid_mom_pap_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_GRID_MOM>(by, bz); }
+int ps_apply_uniform_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_UNIFORM>(by, bz); }
+int ps_apply_uniform_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_UNIFORM>(by, bz); }
+int ps_apply_uniform_pap_blocks_per_sm_f32(int by, int bz) {
+  return ps::window_blocks_per_sm<float, ps::WINDOW_UNIFORM_PAP>(by, bz);
+}
+int ps_apply_uniform_pap_blocks_per_sm_f64(int by, int bz) {
+  return ps::window_blocks_per_sm<double, ps::WINDOW_UNIFORM_PAP>(by, bz);
 }
 
 }  // extern "C"

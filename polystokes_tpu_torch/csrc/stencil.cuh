@@ -115,12 +115,6 @@ __device__ __forceinline__ T grid_w_from_s(const T* __restrict__ c, int a, long 
   return __ldg(c + (C_FFW + a) * d.plane + q) * (-__ldg(c + (C_DTMCINV + a) * d.plane + q) * s);
 }
 
-template <typename T>
-__device__ __forceinline__ T face_w_grid(const T* __restrict__ x, const T* __restrict__ c, int a, int i, int j, int k, const Dims& d) {
-  if (!d.inside(i, j, k)) return T(0);
-  return grid_w_from_s(c, a, d.at(i, j, k), d, forward_s(x, c, a, i, j, k, d));
-}
-
 // The face value w_a = ffw_a * (sign * u_a) of u alone (_transpose_contrib
 // of polystokes_tpu/pallas_apply.py, its own ffw factor kept: dropping it is
 // wrong at solid-cut faces).  sign -1: the apply's reduced branch -u

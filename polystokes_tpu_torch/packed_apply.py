@@ -75,7 +75,7 @@ C_RED = 14  # +a
 N_COEFF = 17
 N_COEFF_UNIFORM = 14  # without the reduced-face masks
 K = 10  # quadratic monomials per axis
-PAP_BLOCK = 256  # slots per <x, A x> partial of apply_uniform_pap (the kernel's thread block)
+PAP_BLOCK = 256  # slots per dot partial of the update kernels (their thread block)
 KERNEL_THREADS = 256  # most threads in a block of any kernel (csrc/stencil.cuh kThreads)
 
 LAUNCHES = {name: 0 for name in ("moments", "expand", "apply_reduced", "grid_mom_pap", "finish", "apply_uniform",
@@ -227,10 +227,14 @@ def _moments_from_s(s, coeffs, T: int):
     return torch.cat(rows, dim=2)
 
 
-def _cube_sums(field, T: int):
-    """[nx, ny, nz] -> [ncubes] per-cube sums, cubes in (c0, c1, c2) order."""
-    nx, ny, nz = field.shape
-    return field.reshape(nx // T, T, ny // T, T, nz // T, T).sum(dim=(1, 3, 5)).reshape(-1)
+def _box_sums(field, box):
+    """[nx, ny, nz] -> the sums over boxes of box = (bx, by, bz) slots, zero
+    past the grid's far edges, boxes in (x, y, z) order."""
+    pad = [(-n % b) for n, b in zip(field.shape, box)]
+    f = torch.nn.functional.pad(field, (0, pad[2], 0, pad[1], 0, pad[0]))
+    nx, ny, nz = f.shape
+    bx, by, bz = box
+    return f.reshape(nx // bx, bx, ny // by, by, nz // bz, bz).sum(dim=(1, 3, 5)).reshape(-1)
 
 
 def moments_packed_plain(xp, coeffs, T: int):
@@ -263,7 +267,7 @@ def grid_mom_pap_packed_plain(xp, coeffs, T: int):
     partials of <x, out_grid>."""
     s = _forward_s(xp, coeffs)
     out = _transpose_out(xp, coeffs, _grid_w(coeffs, s))
-    return out, _moments_from_s(s, coeffs, T), _cube_sums((xp * out).sum(dim=0), T)
+    return out, _moments_from_s(s, coeffs, T), _box_sums((xp * out).sum(dim=0), (T, T, T))
 
 
 def finish_packed_plain(coeffs, out_grid, up):
@@ -292,12 +296,12 @@ def combine_packed_plain(xp, coeffs, sp, up):
 
 
 def apply_uniform_pap_packed_plain(xp, coeffs):
-    """(A x, partials): the uniform A x and the partials of <x, A x> over
-    runs of PAP_BLOCK consecutive slots."""
+    """(A x, partials): the uniform A x and the partials of <x, A x>, one
+    per block of ``uniform_plan``: L planes of a by x bz column, in the
+    kernel's (run, y column, z column) order."""
     out = apply_uniform_packed_plain(xp, coeffs)
-    dots = (xp * out).sum(dim=0).reshape(-1)
-    dots = torch.nn.functional.pad(dots, (0, -dots.numel() % PAP_BLOCK))
-    return out, dots.reshape(-1, PAP_BLOCK).sum(dim=1)
+    by, bz, run = uniform_plan(tuple(xp.shape[1:]))
+    return out, _box_sums((xp * out).sum(dim=0), (run, by, bz))
 
 
 def pack_arrow_factors(factors: dict) -> torch.Tensor:
@@ -350,10 +354,12 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "polystokes_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = None
+# the kernels that march a plane window (csrc/fused_apply.cu plane_window_kernel)
+_WINDOW_KERNELS = ("grid_mom_pap", "apply_uniform", "apply_uniform_pap")
 # (entry point, pointer arguments, int arguments) of each kernel; every
 # entry point also takes the stream and exists for f32 and f64
 _SIGNATURES = (("moments", 3, 4), ("expand", 3, 7), ("apply_reduced", 4, 3), ("grid_mom_pap", 5, 6),
-               ("finish", 4, 3), ("apply_uniform", 3, 3), ("apply_uniform_pap", 4, 3), ("transpose_u", 3, 3),
+               ("finish", 4, 3), ("apply_uniform", 3, 6), ("apply_uniform_pap", 4, 6), ("transpose_u", 3, 3),
                ("forward_s", 3, 3), ("combine", 5, 3), ("cg_update", 10, 4), ("finish_update", 12, 4),
                ("exp_finish_update", 12, 5))
 
@@ -418,8 +424,8 @@ def _library():
                 fn = getattr(lib, f"ps_{name}_{dt}")
                 fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
                 fn.restype = i32
-            for query in ("blocks_per_sm", "window_bytes"):
-                fn = getattr(lib, f"ps_grid_mom_pap_{query}_{dt}")
+            for query in ("window_bytes",) + tuple(f"{k}_blocks_per_sm" for k in _WINDOW_KERNELS):
+                fn = getattr(lib, f"ps_{query}_{dt}")
                 fn.argtypes, fn.restype = [i32, i32], i32
         _LIB = lib
     return _LIB
@@ -490,15 +496,37 @@ def grid_mom_plan(T: int):
     return next(n for n in divisors if n * bz <= KERNEL_THREADS), bz
 
 
-def grid_mom_pap_occupancy(dtype, by: int, bz: int):
-    """(window bytes, blocks per SM) of the grid_mom_pap kernel at the column
-    (by, bz): its dynamic shared memory and the blocks the CUDA occupancy
-    calculator lets reside on one SM (registers, shared memory, threads)."""
+# (by, bz, L) of the uniform apply kernels: 4 rows of 64 slots (256-byte z
+# rows) over runs of 32 planes, the fastest for both kernels of the
+# geometries chip_smoke.py phase 2 sweeps at 128^3 (PERF.md)
+_UNIFORM_GEOMETRY = (4, 64, 32)
+
+
+@functools.lru_cache(maxsize=None)
+def uniform_plan(res):
+    """(by, bz, L), the launch geometry of the uniform apply kernels: a block
+    owns a by x bz column in (y, z) and marches along x over a run of L
+    planes; the grid is (ceil(nz / bz), ceil(ny / by), ceil(nx / L)), so the
+    last column and run may pass the grid's edge.  The geometry timed
+    fastest at 128^3, narrowed to the resolution where that is smaller."""
+    return tuple(min(g, n) for g, n in zip(_UNIFORM_GEOMETRY, (res[1], res[2], res[0])))
+
+
+def window_occupancy(kernel: str, dtype, by: int, bz: int):
+    """(window bytes, blocks per SM) of a plane-window kernel (one of
+    _WINDOW_KERNELS) at the column (by, bz): its dynamic shared memory and
+    the blocks the CUDA occupancy calculator lets reside on one SM
+    (registers, shared memory, threads)."""
     dt = "f32" if dtype == torch.float32 else "f64"
-    n = getattr(_library(), f"ps_grid_mom_pap_blocks_per_sm_{dt}")(by, bz)
+    n = getattr(_library(), f"ps_{kernel}_blocks_per_sm_{dt}")(by, bz)
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
-    return getattr(_library(), f"ps_grid_mom_pap_window_bytes_{dt}")(by, bz), n
+    return getattr(_library(), f"ps_window_bytes_{dt}")(by, bz), n
+
+
+def grid_mom_pap_occupancy(dtype, by: int, bz: int):
+    """window_occupancy of the grid_mom_pap kernel."""
+    return window_occupancy("grid_mom_pap", dtype, by, bz)
 
 
 def moments_packed(xp, coeffs, T: int):
@@ -594,22 +622,32 @@ def apply_uniform_packed(xp, coeffs):
     dev = _check("apply_uniform_packed", (xp, coeffs), ((7,) + res, (n,) + res))
     if dev == "cpu":
         return apply_uniform_packed_plain(xp, coeffs)
-    out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
-    _launch("apply_uniform", (xp, coeffs, out), res, xp.dtype)
-    return out
+    return _apply_uniform_cuda(xp, coeffs, *uniform_plan(res), pap=False)
 
 
 def apply_uniform_pap_packed(xp, coeffs):
     """(A x [7, nx, ny, nz], partials): the uniform A x and the partials of
-    <x, A x>, one per PAP_BLOCK consecutive slots."""
+    <x, A x>, one per block of ``uniform_plan(res)``."""
     res = tuple(xp.shape[1:])
     n = _coeff_channels("apply_uniform_pap_packed", coeffs)
     dev = _check("apply_uniform_pap_packed", (xp, coeffs), ((7,) + res, (n,) + res))
     if dev == "cpu":
         return apply_uniform_pap_packed_plain(xp, coeffs)
+    return _apply_uniform_cuda(xp, coeffs, *uniform_plan(res), pap=True)
+
+
+def _apply_uniform_cuda(xp, coeffs, by: int, bz: int, run: int, pap: bool):
+    """The uniform apply kernel at the geometry (by, bz, run): A x, and with
+    pap also its partials, one per block in (run, y column, z column)
+    order."""
+    res = tuple(xp.shape[1:])
     out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
-    partials = torch.empty((-(-xp[0].numel() // PAP_BLOCK),), dtype=xp.dtype, device=xp.device)
-    _launch("apply_uniform_pap", (xp, coeffs, out, partials), res, xp.dtype)
+    if not pap:
+        _launch("apply_uniform", (xp, coeffs, out), (*res, by, bz, run), xp.dtype)
+        return out
+    blocks = -(-res[0] // run) * -(-res[1] // by) * -(-res[2] // bz)
+    partials = torch.empty((blocks,), dtype=xp.dtype, device=xp.device)
+    _launch("apply_uniform_pap", (xp, coeffs, out, partials), (*res, by, bz, run), xp.dtype)
     return out, partials
 
 

@@ -1,7 +1,8 @@
-"""The launch planners of the grid_mom_pap and expand kernels
-(packed_apply.grid_mom_plan, expand_plan) on the CPU: every geometry they
-pick is one the kernels take (csrc/fused_apply.cu grid_mom_pap,
-csrc/packed_apply.cu expand)."""
+"""The launch planners of the grid_mom_pap, expand and uniform apply
+kernels (packed_apply.grid_mom_plan, expand_plan, uniform_plan) on the CPU:
+every geometry they pick is one the kernels take (csrc/fused_apply.cu
+plane_window, csrc/packed_apply.cu expand), and the uniform twin's
+partials have the layout of the uniform kernel's blocks."""
 import pytest
 import torch
 
@@ -52,4 +53,60 @@ def test_wrappers_take_the_twin_on_cpu():
     ref = tpa.grid_mom_pap_packed_plain(x, c, T)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert torch.equal(tpa.expand_packed(v, c[tpa.C_RED:], T), tpa.expand_packed_plain(v, c[tpa.C_RED:], T))
+    assert tpa.LAUNCHES == before
+
+
+UNIFORM_RES = [(128, 128, 128), (32, 32, 32), (32, 48, 64), (17, 23, 29), (5, 7, 9), (1, 1, 1), (2, 3, 5),
+               (31, 37, 41), (127, 61, 13), (256, 256, 256), (16, 16, 2), (3, 256, 1)]
+
+
+@pytest.mark.parametrize("res", UNIFORM_RES, ids=["x".join(map(str, r)) for r in UNIFORM_RES])
+def test_uniform_plan_is_valid(res):
+    """The column fits the kernel's block and the resolution, the blocks
+    cover the grid with less than one column or run to spare, and the plan
+    is cached."""
+    by, bz, run = tpa.uniform_plan(res)
+    assert by >= 1 and bz >= 1 and run >= 1 and by * bz <= tpa.KERNEL_THREADS
+    assert by <= res[1] and bz <= res[2] and run <= res[0]
+    for n, b in zip(res, (run, by, bz)):
+        blocks = -(-n // b)
+        assert blocks * b >= n > (blocks - 1) * b
+    assert tpa.uniform_plan(res) is tpa.uniform_plan(res)
+
+
+@pytest.mark.parametrize("res", [(16, 16, 16), (17, 23, 29), (5, 7, 9), (33, 18, 40)],
+                         ids=["16", "17x23x29", "5x7x9", "33x18x40"])
+def test_uniform_pap_twin_partials_layout(res):
+    """One partial per block of the plan, in (run, y column, z column)
+    order: each is the sum of x * A x over its block, and they add up to
+    <x, A x> of the unfused twin to round-off."""
+    g = torch.Generator().manual_seed(sum(res))
+    x = torch.randn((7,) + res, generator=g, dtype=torch.float64)
+    c = torch.rand((tpa.N_COEFF_UNIFORM,) + res, generator=g, dtype=torch.float64)
+    out, partials = tpa.apply_uniform_pap_packed_plain(x, c)
+    ref = tpa.apply_uniform_packed_plain(x, c)
+    assert torch.equal(out, ref)
+    by, bz, run = tpa.uniform_plan(res)
+    nb = [-(-n // b) for n, b in zip(res, (run, by, bz))]
+    assert partials.shape == (nb[0] * nb[1] * nb[2],)
+    dots = (x * ref).sum(dim=0)
+    tol = 1e-12 * float(dots.abs().sum())
+    for b0, b1, b2 in ((0, 0, 0), (nb[0] - 1, nb[1] - 1, nb[2] - 1), (nb[0] // 2, nb[1] - 1, 0)):
+        box = dots[b0 * run:(b0 + 1) * run, b1 * by:(b1 + 1) * by, b2 * bz:(b2 + 1) * bz]
+        assert abs(float(partials[(b0 * nb[1] + b1) * nb[2] + b2] - box.sum())) <= tol
+    assert float(partials.sum()) == pytest.approx(float(dots.sum()), rel=1e-12)
+
+
+def test_uniform_wrappers_take_the_twin_on_cpu():
+    """On CPU tensors the uniform wrappers return the twins' results, with
+    the 14- and the 17-channel stack, and launch nothing."""
+    g = torch.Generator().manual_seed(1)
+    res = (9, 10, 11)
+    x = torch.randn((7,) + res, generator=g, dtype=torch.float64)
+    c = torch.rand((tpa.N_COEFF,) + res, generator=g, dtype=torch.float64)
+    before = dict(tpa.LAUNCHES)
+    for coeffs in (c, c[:tpa.N_COEFF_UNIFORM].contiguous()):
+        assert torch.equal(tpa.apply_uniform_packed(x, coeffs), tpa.apply_uniform_packed_plain(x, coeffs))
+        got, ref = tpa.apply_uniform_pap_packed(x, coeffs), tpa.apply_uniform_pap_packed_plain(x, coeffs)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert tpa.LAUNCHES == before
