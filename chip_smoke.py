@@ -10,9 +10,11 @@ Phases (any failed check exits non-zero before the final line):
   1. build the kernels of polystokes_tpu_torch/csrc with nvcc (sm_90a, one
      nvcc per source, all started together); print each kernel's
      registers, static shared memory and spill bytes from the ptxas report,
-     and for grid_mom_pap and the two uniform kernels the planned geometry
-     (the column, and the uniform run at 128^3), the window's dynamic
-     shared memory and the blocks per SM the occupancy calculator allows;
+     and for the five plane-window kernels (grid_mom_pap, moments,
+     apply_reduced and the two uniform kernels) the planned geometry (the
+     column, and the run of the apply kernels at 128^3), the window's
+     dynamic shared memory and the blocks per SM the occupancy calculator
+     allows;
   2. each of the thirteen kernels against its plain PyTorch twin at the
      main-path shapes (honey_coil 128^3, tile 16, float32; the uniform
      kernels on the uniform setup's 14-channel stack): max |diff| <= 1e-5
@@ -20,9 +22,10 @@ Phases (any failed check exits non-zero before the final line):
      three dots of the update kernels, with median times over 20 launches
      (each timed alone, host call included, as in earlier records), the
      device time of one launch (20 launches replayed from a CUDA graph) and
-     the HBM bound; then the device time of both uniform kernels at each
-     geometry (column and run) of UNIFORM_GEOMETRIES, from which
-     packed_apply.uniform_plan takes its pick.  The update kernels run on
+     the HBM bound; then the device time of both uniform kernels and of
+     apply_reduced at each geometry (column and run) of UNIFORM_GEOMETRIES,
+     from which packed_apply.uniform_plan takes its pick, and of moments at
+     each column of MOMENT_COLUMNS at tile 16.  The update kernels run on
      the real CELL_ARROW
      (kind arrow) and DIAGONAL (kind diag) factors: cg_update with every
      kind, finish_update and exp_finish_update with arrow and none; the
@@ -31,8 +34,11 @@ Phases (any failed check exits non-zero before the final line):
      |<y, A x>| of the reduced and the uniform apply, and each fused
      apply_dot against (apply(x), <x, apply(x)>): A x within 1e-5 of max,
      <x, A x> within 1e-5 relative; combine(x, forward_s(x), u) against
-     apply_reduced(x, u) within 1e-5 of max; the REGION_ARROW solve's
-     symmetry |<y, M x> - <M y, x>| <= 1e-5 |<y, M x>|;
+     apply_reduced(x, u) within 1e-5 of max; the moments kernel bit-equal
+     to grid_mom_pap's moments at the planned column; apply_reduced(x, 0)
+     against apply_uniform(x) on the 17-channel stack at one geometry
+     (bit-equal expected and printed, held within 1e-6 of max); the
+     REGION_ARROW solve's symmetry |<y, M x> - <M y, x>| <= 1e-5 |<y, M x>|;
   4. Path A, the main path: step() with fuse_pap=True (the bench default)
      on honey_coil 128^3 (untiled cube regions, max_regions 64, CELL_ARROW,
      tol 1e-3), once to warm and twice timed: converged, error < 1e-3,
@@ -92,15 +98,19 @@ VEL_ATOL = 2e-4  # times max |v|: the packed-against-XLA bound of the JAX tests
 # grid_mom_pap's column, 8 x 32 and 4 x 32 for 128-byte z rows, 4 x 64 for
 # 256-byte ones, runs of 16-32 planes
 UNIFORM_GEOMETRIES = ((16, 16, 16), (16, 16, 32), (8, 32, 16), (8, 32, 24), (8, 32, 32), (4, 32, 32), (4, 64, 32))
+# (by, bz) of the moments kernel timed in phase 2 at tile 16: the whole
+# plane (grid_mom_plan's) and its halves and quarter
+MOMENT_COLUMNS = ((16, 16), (8, 16), (16, 8), (8, 8))
+CROSS_RTOL = 1e-6  # apply_reduced(x, 0) against apply_uniform(x): one march, bit-equal expected
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM at 700 W
 F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 PA = "polystokes_tpu/pallas_apply.py"
 KERNELS = {
     # name: (source, TPU kernel replaced, full-size channels read, written,
     #        flops per slot counted from the formulas in the source notes)
-    "moments": ("packed_apply.cu", f"{PA}:1329", 17, 0, 123),
+    "moments": ("fused_apply.cu", f"{PA}:1329", 17, 0, 123),
     "expand": ("packed_apply.cu", f"{PA}:362", 3, 3, 81),
-    "apply_reduced": ("packed_apply.cu", f"{PA}:552", 24, 7, 87),
+    "apply_reduced": ("fused_apply.cu", f"{PA}:552", 24, 7, 87),
     "grid_mom_pap": ("fused_apply.cu", f"{PA}:762", 24, 7, 179),
     "finish": ("fused_apply.cu", f"{PA}:817", 17, 7, 37),
     "apply_uniform_pap": ("fused_apply.cu", f"{PA}:797", 21, 7, 98),
@@ -292,10 +302,11 @@ def main() -> None:
     uniform_plan = pa.uniform_plan((N_MAIN,) * 3)
     for dtype in (torch.float32, torch.float64):
         by, bz = pa.grid_mom_plan(TILE)
-        window, blocks = pa.grid_mom_pap_occupancy(dtype, by, bz)
-        print(f"  grid_mom_pap {dtype} at tile {TILE}: column {by} x {bz}, "
-              f"{window} bytes dynamic shared memory, {blocks} blocks per SM", flush=True)
-        for name in ("apply_uniform", "apply_uniform_pap"):
+        for name in ("grid_mom_pap", "moments"):
+            window, blocks = pa.window_occupancy(name, dtype, by, bz)
+            print(f"  {name} {dtype} at tile {TILE}: column {by} x {bz}, "
+                  f"{window} bytes dynamic shared memory, {blocks} blocks per SM", flush=True)
+        for name in ("apply_reduced", "apply_uniform", "apply_uniform_pap"):
             window, blocks = pa.window_occupancy(name, dtype, *uniform_plan[:2])
             print(f"  {name} {dtype} at {N_MAIN}^3: column {uniform_plan[0]} x {uniform_plan[1]}, run "
                   f"{uniform_plan[2]}, {window} bytes dynamic shared memory, {blocks} blocks per SM", flush=True)
@@ -368,13 +379,22 @@ def main() -> None:
                        "launches": None, **measure(name, kernel, twin, small_bytes), "library_ms": None,
                        "launches_by_path": {}}
 
-    # the uniform kernels at each geometry of the sweep (device time)
+    # the apply kernels at each geometry of the sweep and the moments at
+    # each column (device time)
+    sweeps = {"apply_uniform": lambda geo: pa._apply_uniform_cuda(xu, coeffs_u, *geo, pap=False),
+              "apply_uniform_pap": lambda geo: pa._apply_uniform_cuda(xu, coeffs_u, *geo, pap=True),
+              "apply_reduced": lambda geo: pa._apply_reduced_cuda(xp, coeffs, u_twin, *geo)}
     for geo in UNIFORM_GEOMETRIES:
-        for name, pap in (("apply_uniform", False), ("apply_uniform_pap", True)):
-            ms = graph_ms(lambda: pa._apply_uniform_cuda(xu, coeffs_u, *geo, pap=pap))
+        for name, run in sweeps.items():
+            ms = graph_ms(lambda: run(geo))
             print(f"phase 2 {name} geometry (by, bz, L) {geo}: device {ms:.4f} ms, "
                   f"{100 * table[name]['bound_ms'] / ms:.1f} % of the bound"
                   f"{' (the plan)' if geo == pa.uniform_plan(grid.res) else ''}", flush=True)
+    for col in MOMENT_COLUMNS:
+        ms = graph_ms(lambda: pa._moments_cuda(xp, coeffs, TILE, *col))
+        print(f"phase 2 moments column (by, bz) {col} at tile {TILE}: device {ms:.4f} ms, "
+              f"{100 * table['moments']['bound_ms'] / ms:.1f} % of the bound"
+              f"{' (the plan)' if col == pa.grid_mom_plan(TILE) else ''}", flush=True)
 
     # the update kernels: kernel 9 with every preconditioner kind, 10 and 11
     # with arrow and none, on the real CELL_ARROW and DIAGONAL factors; the
@@ -436,6 +456,22 @@ def main() -> None:
           flush=True)
     if not d_comb <= KERNEL_RTOL * float(ar.abs().max()):
         fail(f"combine(x, forward_s(x), u) disagrees with apply_reduced(x, u): {d_comb}")
+    # the cross-checks of the shared march: moments alone against
+    # grid_mom_pap's at the planned column, and the reduced apply with u = 0
+    # against the uniform one at the uniform plan, on the 17-channel stack
+    mom_bit = torch.equal(pa.moments_packed(xp, coeffs, TILE), pa.grid_mom_pap_packed(xp, coeffs, TILE)[1])
+    print(f"phase 3 moments against grid_mom_pap's moments at column {pa.grid_mom_plan(TILE)}: bit-equal {mom_bit}",
+          flush=True)
+    if not mom_bit:
+        fail("the moments kernel is not bit-equal to grid_mom_pap's moments at one column")
+    geo = pa.uniform_plan(grid.res)
+    ar0 = pa._apply_reduced_cuda(xp, coeffs, torch.zeros_like(u_twin), *geo)
+    au = pa._apply_uniform_cuda(xp, coeffs, *geo, pap=False)
+    d_u = float((ar0 - au).abs().max())
+    print(f"phase 3 apply_reduced(x, 0) against apply_uniform(x) at {geo}: bit-equal {torch.equal(ar0, au)}, "
+          f"max|diff| {d_u:.3e} max {float(au.abs().max()):.3e}", flush=True)
+    if not d_u <= CROSS_RTOL * float(au.abs().max()):
+        fail(f"apply_reduced(x, 0) disagrees with apply_uniform(x): {d_u}")
     p_r = p_a.replace(preconditioner=PreconditionerType.REGION_ARROW)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

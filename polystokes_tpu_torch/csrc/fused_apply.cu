@@ -1,18 +1,29 @@
-// The kernels of the fused apply (fuse_pap) and of the uniform apply, by
-// hand for Hopper (sm_90a).  Like packed_apply.cu: each launches on the
-// caller's stream, allocates nothing and returns cudaGetLastError()
-// through a plain C entry point (loaded with ctypes by
+// The plane-window kernels of the packed apply and the finish of the
+// fused apply, by hand for Hopper (sm_90a).  Like packed_apply.cu: each
+// launches on the caller's stream, allocates nothing and returns
+// cudaGetLastError() through a plain C entry point (loaded with ctypes by
 // polystokes_tpu_torch/packed_apply.py).  Bounds are HBM bytes at 128^3 in
-// f32 (8.39 MB per channel) over 3.35 TB/s; the arithmetic, some 200-300
+// f32 (8.39 MB per channel) over 3.35 TB/s; the arithmetic, some 100-300
 // flops per slot, is two orders of magnitude below the memory time.
 //
-// plane_window_kernel<T, MODE> is three kernels on one march:
+// plane_window_kernel<T, MODE> is five kernels on one march:
 //   WINDOW_GRID_MOM replaces grid_mom_pap_packed (_make_grid_mom_kernel,
 //   _forward_s, _transpose_out, _mom_block in polystokes_tpu/pallas_apply.py):
 //   in one pass the grid branch of A x with its mass terms (apply_reduced
 //   with u = 0), the per-cube origin moments of the reduced-masked s, and
 //   one partial of <x, out_grid> per cube.  Bound: 24 channels read, 7
 //   written, about 260 MB, 0.078 ms.
+//   WINDOW_MOM replaces moments_packed (_make_moments_kernel): the moments
+//   alone, on WINDOW_GRID_MOM's cube columns and with its arithmetic and
+//   sum order, so the two give bit-equal moments at one column.  It stages
+//   g and h only: no w, no out.  Bound: 17 channels read, about 143 MB,
+//   0.043 ms.
+//   WINDOW_REDUCED replaces apply_reduced_packed (_apply_reduced_kernel,
+//   _transpose_out): the reduced A x given the expanded u, the uniform march
+//   with w_a = ffw_a (-dtMcInv_a s_a - u_a), u read at the slot and at the
+//   ring slots whose w a neighbour reads.  Reads channels 0-13 of the
+//   17-channel stack.  Bound: 24 channels read, 7 written, about 260 MB,
+//   0.078 ms.
 //   WINDOW_UNIFORM replaces apply_uniform_packed (_apply_kernel_uniform) and
 //   WINDOW_UNIFORM_PAP apply_uniform_pap_packed (_grid_uniform_pap_kernel):
 //   the uniform A x (apply_reduced without u), with PAP one partial of
@@ -21,9 +32,9 @@
 //   written, about 235 MB, 0.070 ms.
 //   Design: a plane window in shared memory.  A block of bz x by threads
 //   owns a by x bz column in (y, z) and marches along x over a run of
-//   planes: grid_mom_pap a column of one cube over its T planes
+//   planes: the moment modes a column of one cube over its T planes
 //   (packed_apply.py grid_mom_plan: the whole T x T plane, one block per
-//   cube, up to T 16), the uniform apply a column over a run of L planes
+//   cube, up to T 16), the apply modes a column over a run of L planes
 //   (uniform_plan: 4 x 64 over 32 planes at 128^3), with a grid that
 //   ceil-divides the resolution: a thread whose slot lies outside the grid
 //   stages zeros, writes nothing and reaches every barrier, and the last run
@@ -42,12 +53,15 @@
 //   0..2, per axis): a thread's y and z are fixed over the march, so its 30
 //   moments are formed once at the end and block_sums adds them in a fixed
 //   order.  Where a cube needs several blocks (T above 16), each writes its
-//   own moments and partial and the wrapper sums them over a leading
+//   own moments (and partial) and the wrapper sums them over a leading
 //   dimension; the uniform partials are one per block, summed by the
 //   caller.  No atomics: the result does not depend on block order.  The
-//   window (46 656 B at T 16 in f32, 57 024 B for the uniform 4 x 64
-//   column, twice that in f64) may exceed the 48 KB a block gets by
-//   default: the launch then opts in to more (window_opt_in).
+//   window (46 656 B at T 16 in f32, 57 024 B for the 4 x 64 column, 31 104
+//   B for WINDOW_MOM's g, h at T 16, twice that in f64) may exceed the 48 KB
+//   a block gets by default: the launch then opts in to more
+//   (window_opt_in).  WINDOW_MOM in f32, with 9 sums and no w a thread,
+//   asks for 4 blocks per SM (64 registers a thread), so the 512 cubes of
+//   128^3 at T 16 are one wave on 132 SMs; the others for 2.
 //
 // finish_kernel replaces finish_packed (_finish_kernel, _transpose_contrib).
 //   out = out_grid + [G Dt]^T (-u): the reduced branch, no mass terms (they
@@ -61,28 +75,35 @@
 
 namespace ps {
 
-// The window of plane_window_kernel on the block's by x bz column and its
-// one-slot ring in (y, z): a ring of 4 planes of g_a, h_e (6 values) and of
-// 4 planes of w_a (3 values).
-inline int window_bytes(int by, int bz, int itemsize) { return 4 * (6 + 3) * (by + 2) * (bz + 2) * itemsize; }
+// What a plane-window kernel computes: grid_mom_pap's grid branch of A x,
+// moments and per-cube partials; the uniform A x alone or with one
+// <x, A x> partial per block; the reduced A x given u; the moments alone.
+// packed_apply.py _WINDOW_KERNELS maps each kernel's name to its MODE.
+enum : int { WINDOW_GRID_MOM = 0, WINDOW_UNIFORM = 1, WINDOW_UNIFORM_PAP = 2, WINDOW_REDUCED = 3, WINDOW_MOM = 4 };
 
-// What a plane-window kernel writes beside the grid branch of A x:
-// grid_mom_pap's moments and per-cube partials, nothing (the uniform apply)
-// or one <x, A x> partial per block (the uniform apply with PAP).
-enum : int { WINDOW_GRID_MOM = 0, WINDOW_UNIFORM = 1, WINDOW_UNIFORM_PAP = 2 };
+// The window of plane_window_kernel on the block's by x bz column and its
+// one-slot ring in (y, z): a ring of 4 planes of g_a, h_e (6 values) and,
+// but for WINDOW_MOM, of 4 planes of w_a (3 values).
+inline int window_bytes(int mode, int by, int bz, int itemsize) {
+  return 4 * (6 + (mode == WINDOW_MOM ? 0 : 3)) * (by + 2) * (bz + 2) * itemsize;
+}
 
 // Two blocks of 256 threads per SM: at most 128 registers a thread, which
-// the step's loads, all in flight together, need.
+// the step's loads, all in flight together, need; WINDOW_MOM in f32,
+// without w and out, four (64 registers, no spill; f64 spills at 64 and
+// keeps two).
 template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads, 2)
-plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restrict__ out, T* __restrict__ mom,
-                    T* __restrict__ partials, Dims d, int run) {
-  constexpr bool MOM = MODE == WINDOW_GRID_MOM;
+__global__ void __launch_bounds__(kThreads, MODE == WINDOW_MOM && sizeof(T) == 4 ? 4 : 2)
+plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* __restrict__ u, T* __restrict__ out,
+                    T* __restrict__ mom, T* __restrict__ partials, Dims d, int run) {
+  // MOM: the moments, on columns of one cube; OUT: A x, through w
+  constexpr bool MOM = MODE == WINDOW_GRID_MOM || MODE == WINDOW_MOM;
+  constexpr bool OUT = MODE != WINDOW_MOM;
   extern __shared__ __align__(16) unsigned char window_raw[];
   // block (bz, by) threads: column z0.., y0.. over planes x0 .. x_end - 1,
-  // one thread per (j, k) of the column on every plane.  grid_mom_pap: the
-  // column lies in cube (c0, c1, c2) and the run is its tile planes; the
-  // uniform apply: runs of `run` planes, the last clipped at nx, and
+  // one thread per (j, k) of the column on every plane.  The moment modes:
+  // the column lies in cube (c0, c1, c2) and the run is its tile planes;
+  // the apply modes: runs of `run` planes, the last clipped at nx, and
   // columns that may pass ny and nz
   const int bz = blockDim.x, by = blockDim.y, nthreads = bz * by;
   const int tid = threadIdx.y * bz + threadIdx.x;
@@ -96,7 +117,8 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
   const int rz = bz + 2, ring = (by + 2) * rz;
   const int own = (threadIdx.y + 1) * rz + threadIdx.x + 1;
   // plane i (x0 - 1 <= i <= x_end + 1) sits in ring slot (i - x0 + 4) & 3:
-  // gh [4][6][ring] holds g_0..2, h_0..2 and wv [4][3][ring] w_0..2
+  // gh [4][6][ring] holds g_0..2, h_0..2 and wv [4][3][ring] w_0..2 (not
+  // in WINDOW_MOM's window)
   T* const gh = reinterpret_cast<T*>(window_raw);
   T* const wv = gh + 4 * 6 * ring;
   auto gh_of = [&](int i, int ch) { return gh + (((i - x0 + 4) & 3) * 6 + ch) * ring; };
@@ -156,18 +178,29 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
     for (int e = 0; e < 3; ++e) sm_p[a][e] = T(0);
   T dot = T(0);
 
-  // w_a of plane i at the thread's slot, every axis, and (grid_mom_pap) the
-  // moments of a plane of the cube.  On the halo planes x0 - 1 and x_end
+  // the face value w_a at slot q from s_a: the grid branch's, or with
+  // WINDOW_REDUCED the full one with u_a at q (q is 0 outside the grid,
+  // where w is 0 whatever u holds, so u is never read out of range)
+  auto w_from_s = [&](int a, long long q, T s) {
+    if constexpr (MODE == WINDOW_REDUCED) return w_from_s_u(c, a, q, d, s, __ldg(u + a * d.plane + q));
+    else return grid_w_from_s(c, a, q, d, s);
+  };
+
+  // w_a of plane i at the thread's slot, every axis, and (the moment modes)
+  // the moments of a plane of the cube.  On the halo planes x0 - 1 and x_end
   // only w_0 and w_1, w_2 are read (they may use a plane of g, h that was
   // not staged); a run clipped at nx has x_end = nx, whose g, h stage as 0.
+  // WINDOW_MOM runs it on the cube's planes only and keeps no w.
   auto stage_w_own = [&](int i) {
     const bool in = i >= 0 && i < d.nx && own_in;
     const long long q = in ? d.at(i, j, k) : 0;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const T s = __ldg(c + (C_FFW + a) * d.plane + q) * s_over_ffw(i, a, own);
-      const T w = grid_w_from_s(c, a, q, d, s);
-      w_of(i, a)[own] = in ? w : T(0);
+      if constexpr (OUT) {
+        const T w = w_from_s(a, q, s);
+        w_of(i, a)[own] = in ? w : T(0);
+      }
       if constexpr (MOM) {
         const bool moment = i >= x0 && i < x_end;
         const T sm = moment ? s * __ldg(c + (C_RED + a) * d.plane + q) : T(0);
@@ -184,7 +217,7 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
     const bool in = d.inside(i, jj, kk);
     const long long q = in ? d.at(i, jj, kk) : 0;
     const T s = __ldg(c + (C_FFW + a) * d.plane + q) * s_over_ffw(i, a, r);
-    const T w = grid_w_from_s(c, a, q, d, s);
+    const T w = w_from_s(a, q, s);
     w_of(i, a)[r] = in ? w : T(0);
   };
   // w is needed on the ring only where a neighbour reads it
@@ -243,7 +276,9 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
   // a plane an earlier step wrote, and one barrier a step suffices; the
   // rings of 4 planes hold what a step reads apart from what it writes.
   // Steps x0 + 2 .. x_end - 2 run every stage; the first and last run the
-  // stages that have a plane to work on.
+  // stages that have a plane to work on.  WINDOW_MOM stages g, h the same
+  // way and takes the moments of plane m, x0 <= m < x_end, in step m; it
+  // ends with step x_end - 1.
   auto step = [&](int m, bool gh_on, bool w_on, bool ring_on, bool out_on) {
     if (gh_on) {
       stage_gh_at(m + 2, threadIdx.y + 1, threadIdx.x + 1);
@@ -273,11 +308,13 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
     }
   }
   __syncthreads();
-  for (int m = x0 - 1; m <= min(x0 + 1, x_end + 1); ++m)
-    step(m, m + 2 <= x_end, m <= x_end, m >= x0 && m < x_end, m - 2 >= x0);
-  for (int m = x0 + 2; m <= x_end - 2; ++m) step(m, true, true, true, true);
-  for (int m = max(x0 + 2, x_end - 1); m <= x_end + 1; ++m)
-    step(m, m + 2 <= x_end, m <= x_end, m >= x0 && m < x_end, m - 2 >= x0);
+  const int m_last = OUT ? x_end + 1 : x_end - 1;
+  auto edge_step = [&](int m) {
+    step(m, m + 2 <= x_end, OUT ? m <= x_end : m >= x0, OUT && m >= x0 && m < x_end, OUT && m - 2 >= x0);
+  };
+  for (int m = x0 - 1; m <= min(x0 + 1, m_last); ++m) edge_step(m);
+  for (int m = x0 + 2; m <= x_end - 2; ++m) step(m, true, true, OUT, OUT);
+  for (int m = max(x0 + 2, x_end - 1); m <= m_last; ++m) edge_step(m);
 
   if constexpr (MODE == WINDOW_UNIFORM_PAP) {
     // one partial per block, blocks in (run, y column, z column) order
@@ -288,9 +325,11 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
   if constexpr (MOM) {
     // acc[a*K + m]: this thread's share of the moments, monomials
     // [1, x, y, z, x^2, xy, xz, y^2, yz, z^2] at cube-local face positions
-    // (+0.5 on the face axis); acc[3K]: the <x, out_grid> partial
+    // (+0.5 on the face axis); acc[3K] (grid_mom_pap): the <x, out_grid>
+    // partial
+    constexpr int N = 3 * K + (MODE == WINDOW_GRID_MOM ? 1 : 0);
     const int tile = run, c0 = blockIdx.z, c1 = y0 / tile, c2 = z0 / tile;
-    T acc[3 * K + 1];
+    T acc[N];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const T py = T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0));
@@ -308,7 +347,7 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
       m[8] = (py * pz) * s0;
       m[9] = (pz * pz) * s0;
     }
-    acc[3 * K] = dot;
+    if constexpr (MODE == WINDOW_GRID_MOM) acc[3 * K] = dot;
     const T* total = block_sums(acc);
 
     // part (column) index of the block within its cube, and its slice of
@@ -319,7 +358,7 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restr
     const long long ncubes = (long long)cs0 * cs1 * cs2;
     const long long cube = ((long long)c0 * cs1 + c1) * cs2 + c2;
     T* mom_part = mom + part * ncubes * (3 * K);
-    for (int m = tid; m < 3 * K + 1; m += nthreads) {
+    for (int m = tid; m < N; m += nthreads) {
       if (m < 3 * K) mom_part[(((long long)c0 * cs1 + c1) * (3 * K) + m) * cs2 + c2] = total[m];
       else partials[part * ncubes + cube] = total[m];
     }
@@ -357,17 +396,17 @@ cudaError_t window_opt_in(int bytes) {
 }
 
 // One launch of plane_window_kernel: by x bz columns over runs of `run`
-// planes (grid_mom_pap: run = tile, and the column divides the cube).
+// planes (the moment modes: run = tile, and the column divides the cube).
 template <typename T, int MODE>
-int plane_window(const T* x, const T* c, T* out, T* mom, T* partials, int nx, int ny, int nz, int run, int by, int bz,
-                 cudaStream_t stream) {
+int plane_window(const T* x, const T* c, const T* u, T* out, T* mom, T* partials, int nx, int ny, int nz, int run, int by,
+                 int bz, cudaStream_t stream) {
   if (by < 1 || bz < 1 || by * bz > kThreads || run < 1) return (int)cudaErrorInvalidValue;
-  if (MODE == WINDOW_GRID_MOM && (run % by || run % bz)) return (int)cudaErrorInvalidValue;
-  const int bytes = window_bytes(by, bz, (int)sizeof(T));
+  if ((MODE == WINDOW_GRID_MOM || MODE == WINDOW_MOM) && (run % by || run % bz)) return (int)cudaErrorInvalidValue;
+  const int bytes = window_bytes(MODE, by, bz, (int)sizeof(T));
   const cudaError_t err = window_opt_in<T, MODE>(bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((nz + bz - 1) / bz), (unsigned)((ny + by - 1) / by), (unsigned)((nx + run - 1) / run));
-  plane_window_kernel<T, MODE><<<grid, dim3(bz, by), bytes, stream>>>(x, c, out, mom, partials, dims(nx, ny, nz), run);
+  plane_window_kernel<T, MODE><<<grid, dim3(bz, by), bytes, stream>>>(x, c, u, out, mom, partials, dims(nx, ny, nz), run);
   return (int)cudaGetLastError();
 }
 
@@ -375,7 +414,7 @@ int plane_window(const T* x, const T* c, T* out, T* mom, T* partials, int nx, in
 // (by, bz), from the CUDA occupancy calculator; negative: a CUDA error.
 template <typename T, int MODE>
 int window_blocks_per_sm(int by, int bz) {
-  const int bytes = window_bytes(by, bz, (int)sizeof(T));
+  const int bytes = window_bytes(MODE, by, bz, (int)sizeof(T));
   cudaError_t err = window_opt_in<T, MODE>(bytes);
   int n = 0;
   if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, plane_window_kernel<T, MODE>, by * bz, bytes);
@@ -395,11 +434,18 @@ extern "C" {
 
 int ps_grid_mom_pap_f32(const float* x, const float* c, float* out, float* mom, float* partials, int nx, int ny, int nz, int tile,
                         int by, int bz, cudaStream_t s) {
-  return ps::plane_window<float, ps::WINDOW_GRID_MOM>(x, c, out, mom, partials, nx, ny, nz, tile, by, bz, s);
+  return ps::plane_window<float, ps::WINDOW_GRID_MOM>(x, c, nullptr, out, mom, partials, nx, ny, nz, tile, by, bz, s);
 }
 int ps_grid_mom_pap_f64(const double* x, const double* c, double* out, double* mom, double* partials, int nx, int ny, int nz,
                         int tile, int by, int bz, cudaStream_t s) {
-  return ps::plane_window<double, ps::WINDOW_GRID_MOM>(x, c, out, mom, partials, nx, ny, nz, tile, by, bz, s);
+  return ps::plane_window<double, ps::WINDOW_GRID_MOM>(x, c, nullptr, out, mom, partials, nx, ny, nz, tile, by, bz, s);
+}
+int ps_moments_f32(const float* x, const float* c, float* mom, int nx, int ny, int nz, int tile, int by, int bz, cudaStream_t s) {
+  return ps::plane_window<float, ps::WINDOW_MOM>(x, c, nullptr, nullptr, mom, nullptr, nx, ny, nz, tile, by, bz, s);
+}
+int ps_moments_f64(const double* x, const double* c, double* mom, int nx, int ny, int nz, int tile, int by, int bz,
+                   cudaStream_t s) {
+  return ps::plane_window<double, ps::WINDOW_MOM>(x, c, nullptr, nullptr, mom, nullptr, nx, ny, nz, tile, by, bz, s);
 }
 int ps_finish_f32(const float* c, const float* out_grid, const float* u, float* out, int nx, int ny, int nz, cudaStream_t s) {
   return ps::finish(c, out_grid, u, out, nx, ny, nz, s);
@@ -407,28 +453,41 @@ int ps_finish_f32(const float* c, const float* out_grid, const float* u, float* 
 int ps_finish_f64(const double* c, const double* out_grid, const double* u, double* out, int nx, int ny, int nz, cudaStream_t s) {
   return ps::finish(c, out_grid, u, out, nx, ny, nz, s);
 }
+int ps_apply_reduced_f32(const float* x, const float* c, const float* u, float* out, int nx, int ny, int nz, int by, int bz,
+                         int run, cudaStream_t s) {
+  return ps::plane_window<float, ps::WINDOW_REDUCED>(x, c, u, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
+}
+int ps_apply_reduced_f64(const double* x, const double* c, const double* u, double* out, int nx, int ny, int nz, int by, int bz,
+                         int run, cudaStream_t s) {
+  return ps::plane_window<double, ps::WINDOW_REDUCED>(x, c, u, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
+}
 int ps_apply_uniform_f32(const float* x, const float* c, float* out, int nx, int ny, int nz, int by, int bz, int run,
                          cudaStream_t s) {
-  return ps::plane_window<float, ps::WINDOW_UNIFORM>(x, c, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
+  return ps::plane_window<float, ps::WINDOW_UNIFORM>(x, c, nullptr, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
 }
 int ps_apply_uniform_f64(const double* x, const double* c, double* out, int nx, int ny, int nz, int by, int bz, int run,
                          cudaStream_t s) {
-  return ps::plane_window<double, ps::WINDOW_UNIFORM>(x, c, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
+  return ps::plane_window<double, ps::WINDOW_UNIFORM>(x, c, nullptr, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
 }
 int ps_apply_uniform_pap_f32(const float* x, const float* c, float* out, float* partials, int nx, int ny, int nz, int by, int bz,
                              int run, cudaStream_t s) {
-  return ps::plane_window<float, ps::WINDOW_UNIFORM_PAP>(x, c, out, nullptr, partials, nx, ny, nz, run, by, bz, s);
+  return ps::plane_window<float, ps::WINDOW_UNIFORM_PAP>(x, c, nullptr, out, nullptr, partials, nx, ny, nz, run, by, bz, s);
 }
 int ps_apply_uniform_pap_f64(const double* x, const double* c, double* out, double* partials, int nx, int ny, int nz, int by,
                              int bz, int run, cudaStream_t s) {
-  return ps::plane_window<double, ps::WINDOW_UNIFORM_PAP>(x, c, out, nullptr, partials, nx, ny, nz, run, by, bz, s);
+  return ps::plane_window<double, ps::WINDOW_UNIFORM_PAP>(x, c, nullptr, out, nullptr, partials, nx, ny, nz, run, by, bz, s);
 }
-// the plane window's dynamic shared memory and blocks per SM at the column
-// (by, bz), for each kernel that marches it
-int ps_window_bytes_f32(int by, int bz) { return ps::window_bytes(by, bz, (int)sizeof(float)); }
-int ps_window_bytes_f64(int by, int bz) { return ps::window_bytes(by, bz, (int)sizeof(double)); }
+// the plane window's dynamic shared memory (of the kernel whose MODE is
+// `mode`) and blocks per SM at the column (by, bz), for each kernel that
+// marches it
+int ps_window_bytes_f32(int by, int bz, int mode) { return ps::window_bytes(mode, by, bz, (int)sizeof(float)); }
+int ps_window_bytes_f64(int by, int bz, int mode) { return ps::window_bytes(mode, by, bz, (int)sizeof(double)); }
 int ps_grid_mom_pap_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_GRID_MOM>(by, bz); }
 int ps_grid_mom_pap_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_GRID_MOM>(by, bz); }
+int ps_moments_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_MOM>(by, bz); }
+int ps_moments_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_MOM>(by, bz); }
+int ps_apply_reduced_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_REDUCED>(by, bz); }
+int ps_apply_reduced_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_REDUCED>(by, bz); }
 int ps_apply_uniform_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_UNIFORM>(by, bz); }
 int ps_apply_uniform_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_UNIFORM>(by, bz); }
 int ps_apply_uniform_pap_blocks_per_sm_f32(int by, int bz) {

@@ -1,8 +1,9 @@
 // Device functions shared by the packed-apply kernels (packed_apply.cu,
 // fused_apply.cu, transpose_apply.cu, update_apply.cu): zero-filled loads in
 // the packed slot layout, the forward stencil s_a, the face values w_a the
-// transpose spreads, the transpose itself, the quadratic monomials and the
-// region polynomial (along a row and at a slot), the pointwise preconditioners and a thread-block sum.
+// transpose spreads, the transpose itself, the region polynomial over the
+// quadratic monomials (along a row and at a slot), the pointwise
+// preconditioners and thread-block sums.
 //
 // Packed layout (see polystokes_tpu_torch/packed_apply.py): every field is
 // a channel of a contiguous [C, nx, ny, nz] array, z fastest.  Solve
@@ -91,14 +92,6 @@ __device__ __forceinline__ T w_from_s_u(const T* __restrict__ c, int a, long lon
   return __ldg(c + (C_FFW + a) * d.plane + q) * f;
 }
 
-// w_a with s_a computed from x; 0 outside the grid.
-template <typename T>
-__device__ __forceinline__ T face_w(const T* __restrict__ x, const T* __restrict__ c, const T* __restrict__ u, int a, int i, int j, int k, const Dims& d) {
-  if (!d.inside(i, j, k)) return T(0);
-  const long long q = d.at(i, j, k);
-  return w_from_s_u(c, a, q, d, forward_s(x, c, a, i, j, k, d), __ldg(u + a * d.plane + q));
-}
-
 // w_a with s_a read from a stored forward pass (combine_kernel); 0 outside
 // the grid.
 template <typename T>
@@ -108,8 +101,8 @@ __device__ __forceinline__ T face_w_stored(const T* __restrict__ c, const T* __r
   return w_from_s_u(c, a, q, d, __ldg(s + a * d.plane + q), __ldg(u + a * d.plane + q));
 }
 
-// The grid branch's face value w_a = ffw_a * (-dtMcInv_a * s_a): face_w
-// without u, from s_a at the slot.
+// The grid branch's face value w_a = ffw_a * (-dtMcInv_a * s_a): w_from_s_u
+// without u.
 template <typename T>
 __device__ __forceinline__ T grid_w_from_s(const T* __restrict__ c, int a, long long q, const Dims& d, T s) {
   return __ldg(c + (C_FFW + a) * d.plane + q) * (-__ldg(c + (C_DTMCINV + a) * d.plane + q) * s);
@@ -168,20 +161,6 @@ __device__ __forceinline__ void sub_mass_terms(const T* __restrict__ x, const T*
   for (int a = 0; a < 3; ++a) o[1 + a] = o[1 + a] - uinv2c * __ldg(x + (1 + a) * d.plane + q);
 #pragma unroll
   for (int e = 0; e < 3; ++e) o[4 + e] = o[4 + e] - __ldg(c + (C_UINV2E + e) * d.plane + q) * __ldg(x + (4 + e) * d.plane + q);
-}
-
-template <typename T>
-__device__ __forceinline__ void monomials(T px, T py, T pz, T m[K]) {
-  m[0] = T(1);
-  m[1] = px;
-  m[2] = py;
-  m[3] = pz;
-  m[4] = px * px;
-  m[5] = px * py;
-  m[6] = px * pz;
-  m[7] = py * py;
-  m[8] = py * pz;
-  m[9] = pz * pz;
 }
 
 // The region polynomial sum_m v_m m_m(px, py, pz) of one cube and axis

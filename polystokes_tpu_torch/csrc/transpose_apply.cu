@@ -25,7 +25,8 @@
 //   (-dtMcInv_a s_a - u_a) at the slot and its neighbours, the transpose and
 //   the mass terms.  Bound: 26 channels read (x[1:7], c[:14], s, u), 7
 //   written, about 277 MB, 0.083 ms.  Design: one thread per slot;
-//   combine(x, forward_s(x), u) equals apply_reduced(x, u).
+//   combine(x, forward_s(x), u) agrees with apply_reduced(x, u), a plane
+//   window in fused_apply.cu, to round-off.
 #include <cuda_runtime.h>
 
 #include "stencil.cuh"

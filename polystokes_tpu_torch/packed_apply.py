@@ -31,7 +31,8 @@ and a CUDA tensor to its hand-written kernel, built with nvcc for sm_90a
 into ``build/polystokes_tpu_torch/`` on first use and loaded with ctypes:
 
 * ``moments_packed``, ``expand_packed``, ``apply_reduced_packed``: the
-  reduced apply (``csrc/packed_apply.cu``);
+  reduced apply (``expand`` in ``csrc/packed_apply.cu``, the other two on
+  the plane window of ``csrc/fused_apply.cu``);
 * ``grid_mom_pap_packed``, ``finish_packed``: the fused reduced apply that
   also returns <x, A x> (``fuse_pap``); ``apply_uniform_packed``,
   ``apply_uniform_pap_packed``: the uniform apply (``csrc/fused_apply.cu``);
@@ -354,11 +355,12 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "polystokes_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = None
-# the kernels that march a plane window (csrc/fused_apply.cu plane_window_kernel)
-_WINDOW_KERNELS = ("grid_mom_pap", "apply_uniform", "apply_uniform_pap")
+# the kernels that march a plane window, each with its MODE in
+# csrc/fused_apply.cu plane_window_kernel
+_WINDOW_KERNELS = {"grid_mom_pap": 0, "apply_uniform": 1, "apply_uniform_pap": 2, "apply_reduced": 3, "moments": 4}
 # (entry point, pointer arguments, int arguments) of each kernel; every
 # entry point also takes the stream and exists for f32 and f64
-_SIGNATURES = (("moments", 3, 4), ("expand", 3, 7), ("apply_reduced", 4, 3), ("grid_mom_pap", 5, 6),
+_SIGNATURES = (("moments", 3, 6), ("expand", 3, 7), ("apply_reduced", 4, 6), ("grid_mom_pap", 5, 6),
                ("finish", 4, 3), ("apply_uniform", 3, 6), ("apply_uniform_pap", 4, 6), ("transpose_u", 3, 3),
                ("forward_s", 3, 3), ("combine", 5, 3), ("cg_update", 10, 4), ("finish_update", 12, 4),
                ("exp_finish_update", 12, 5))
@@ -424,9 +426,10 @@ def _library():
                 fn = getattr(lib, f"ps_{name}_{dt}")
                 fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
                 fn.restype = i32
-            for query in ("window_bytes",) + tuple(f"{k}_blocks_per_sm" for k in _WINDOW_KERNELS):
+            # window bytes at (by, bz, MODE); blocks per SM at (by, bz)
+            for query, n_int in [("window_bytes", 3)] + [(f"{k}_blocks_per_sm", 2) for k in _WINDOW_KERNELS]:
                 fn = getattr(lib, f"ps_{query}_{dt}")
-                fn.argtypes, fn.restype = [i32, i32], i32
+                fn.argtypes, fn.restype = [i32] * n_int, i32
         _LIB = lib
     return _LIB
 
@@ -496,19 +499,21 @@ def grid_mom_plan(T: int):
     return next(n for n in divisors if n * bz <= KERNEL_THREADS), bz
 
 
-# (by, bz, L) of the uniform apply kernels: 4 rows of 64 slots (256-byte z
-# rows) over runs of 32 planes, the fastest for both kernels of the
-# geometries chip_smoke.py phase 2 sweeps at 128^3 (PERF.md)
+# (by, bz, L) of the uniform and reduced apply kernels: 4 rows of 64 slots
+# (256-byte z rows) over runs of 32 planes, of the geometries chip_smoke.py
+# phase 2 sweeps at 128^3 the fastest for apply_uniform_pap and
+# apply_reduced and within 3 % of the fastest for apply_uniform (PERF.md)
 _UNIFORM_GEOMETRY = (4, 64, 32)
 
 
 @functools.lru_cache(maxsize=None)
 def uniform_plan(res):
-    """(by, bz, L), the launch geometry of the uniform apply kernels: a block
-    owns a by x bz column in (y, z) and marches along x over a run of L
-    planes; the grid is (ceil(nz / bz), ceil(ny / by), ceil(nx / L)), so the
-    last column and run may pass the grid's edge.  The geometry timed
-    fastest at 128^3, narrowed to the resolution where that is smaller."""
+    """(by, bz, L), the launch geometry of the uniform and reduced apply
+    kernels: a block owns a by x bz column in (y, z) and marches along x
+    over a run of L planes; the grid is (ceil(nz / bz), ceil(ny / by),
+    ceil(nx / L)), so the last column and run may pass the grid's edge.  The
+    geometry timed fastest at 128^3, narrowed to the resolution where that
+    is smaller."""
     return tuple(min(g, n) for g, n in zip(_UNIFORM_GEOMETRY, (res[1], res[2], res[0])))
 
 
@@ -521,7 +526,7 @@ def window_occupancy(kernel: str, dtype, by: int, bz: int):
     n = getattr(_library(), f"ps_{kernel}_blocks_per_sm_{dt}")(by, bz)
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
-    return getattr(_library(), f"ps_window_bytes_{dt}")(by, bz), n
+    return getattr(_library(), f"ps_window_bytes_{dt}")(by, bz, _WINDOW_KERNELS[kernel]), n
 
 
 def grid_mom_pap_occupancy(dtype, by: int, bz: int):
@@ -529,16 +534,35 @@ def grid_mom_pap_occupancy(dtype, by: int, bz: int):
     return window_occupancy("grid_mom_pap", dtype, by, bz)
 
 
+def _cube_parts(T: int, by: int, bz: int):
+    """The leading dimension of the per-block moments and partials of a
+    moment kernel at the column (by, bz): () for one block per cube, else
+    (blocks per cube,)."""
+    parts = (T // by) * (T // bz)
+    return (parts,) if parts > 1 else ()
+
+
 def moments_packed(xp, coeffs, T: int):
     """[cs0, cs1, 3K, cs2] per-cube moments of the reduced-masked s."""
     res = tuple(xp.shape[1:])
-    cs = _cube_dims(res, T)
+    _cube_dims(res, T)
     dev = _check("moments_packed", (xp, coeffs), ((7,) + res, (N_COEFF,) + res))
     if dev == "cpu":
         return moments_packed_plain(xp, coeffs, T)
-    mom = torch.empty((cs[0], cs[1], 3 * K, cs[2]), dtype=xp.dtype, device=xp.device)
-    _launch("moments", (xp, coeffs, mom), (*res, T), xp.dtype)
-    return mom
+    return _moments_cuda(xp, coeffs, T, *grid_mom_plan(T))
+
+
+def _moments_cuda(xp, coeffs, T: int, by: int, bz: int):
+    """moments_packed's kernel at the column geometry (by, bz), on
+    grid_mom_pap's columns: each of a cube's (T / by) * (T / bz) blocks
+    writes its own moments, summed here over dim 0 as _grid_mom_pap_cuda
+    sums them, so the two agree bit for bit at one column."""
+    res = tuple(xp.shape[1:])
+    cs = _cube_dims(res, T)
+    lead = _cube_parts(T, by, bz)
+    mom = torch.empty(lead + (cs[0], cs[1], 3 * K, cs[2]), dtype=xp.dtype, device=xp.device)
+    _launch("moments", (xp, coeffs, mom), (*res, T, by, bz), xp.dtype)
+    return mom.sum(dim=0) if lead else mom
 
 
 def expand_packed(v_origin, red_packed, T: int):
@@ -560,8 +584,14 @@ def apply_reduced_packed(xp, coeffs, up):
     dev = _check("apply_reduced_packed", (xp, coeffs, up), ((7,) + res, (N_COEFF,) + res, (3,) + res))
     if dev == "cpu":
         return apply_reduced_packed_plain(xp, coeffs, up)
-    out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
-    _launch("apply_reduced", (xp, coeffs, up, out), res, xp.dtype)
+    return _apply_reduced_cuda(xp, coeffs, up, *uniform_plan(res))
+
+
+def _apply_reduced_cuda(xp, coeffs, up, by: int, bz: int, run: int):
+    """The reduced apply kernel at the geometry (by, bz, run): by x bz
+    columns over runs of `run` planes, as the uniform apply's."""
+    out = torch.empty_like(xp)
+    _launch("apply_reduced", (xp, coeffs, up, out), (*xp.shape[1:], by, bz, run), xp.dtype)
     return out
 
 
@@ -583,13 +613,12 @@ def _grid_mom_pap_cuda(xp, coeffs, T: int, by: int, bz: int):
     summed here over dim 0 (a fixed order) when there are several."""
     res = tuple(xp.shape[1:])
     cs = _cube_dims(res, T)
-    parts = (T // by) * (T // bz)
-    lead = (parts,) if parts > 1 else ()
+    lead = _cube_parts(T, by, bz)
     out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
     mom = torch.empty(lead + (cs[0], cs[1], 3 * K, cs[2]), dtype=xp.dtype, device=xp.device)
     partials = torch.empty(lead + (cs[0] * cs[1] * cs[2],), dtype=xp.dtype, device=xp.device)
     _launch("grid_mom_pap", (xp, coeffs, out, mom, partials), (*res, T, by, bz), xp.dtype)
-    if parts == 1:
+    if not lead:
         return out, mom, partials
     return out, mom.sum(dim=0), partials.sum(dim=0)
 

@@ -1,8 +1,11 @@
-"""The launch planners of the grid_mom_pap, expand and uniform apply
-kernels (packed_apply.grid_mom_plan, expand_plan, uniform_plan) on the CPU:
-every geometry they pick is one the kernels take (csrc/fused_apply.cu
-plane_window, csrc/packed_apply.cu expand), and the uniform twin's
-partials have the layout of the uniform kernel's blocks."""
+"""The launch planners of the plane-window and expand kernels
+(packed_apply.grid_mom_plan, which the moments kernel shares with
+grid_mom_pap; uniform_plan, which the reduced apply shares with the uniform
+apply; expand_plan) on the CPU: every geometry they pick is one the kernels
+take (csrc/fused_apply.cu plane_window, csrc/packed_apply.cu expand), the
+per-block moments of a planned column have the layout the wrappers sum,
+and the uniform twin's partials have the layout of the uniform kernel's
+blocks."""
 import pytest
 import torch
 
@@ -17,6 +20,19 @@ def test_grid_mom_plan_is_valid(T):
     assert T % by == 0 and T % bz == 0
     assert by * bz <= tpa.KERNEL_THREADS
     assert ((by, bz) == (T, T)) == (T * T <= tpa.KERNEL_THREADS)
+
+
+@pytest.mark.parametrize("T", range(1, 41))
+def test_moment_kernels_parts_of_the_planned_column(T):
+    """The moments and grid_mom_pap kernels write one slice of moments per
+    block of a cube: none to sum where the planned column is the whole
+    plane, else (T / by) * (T / bz) slices that tile the plane."""
+    by, bz = tpa.grid_mom_plan(T)
+    lead = tpa._cube_parts(T, by, bz)
+    if T * T <= tpa.KERNEL_THREADS:
+        assert lead == ()
+    else:
+        assert lead == ((T // by) * (T // bz),) and lead[0] > 1 and lead[0] * by * bz == T * T
 
 
 @pytest.mark.parametrize("T, want", [(4, (4, 4)), (6, (6, 6)), (8, (8, 8)), (16, (16, 16)), (20, (10, 20)),
@@ -41,18 +57,21 @@ def test_expand_plan(res, T, itemsize, aligned, vec):
 
 
 def test_wrappers_take_the_twin_on_cpu():
-    """On CPU tensors the two wrappers return the twins' results and launch
-    nothing."""
+    """On CPU tensors the wrappers of the reduced apply's kernels return the
+    twins' results and launch nothing."""
     g = torch.Generator().manual_seed(0)
     res, T = (8, 8, 16), 8
     x = torch.randn((7,) + res, generator=g, dtype=torch.float64)
     c = torch.rand((tpa.N_COEFF,) + res, generator=g, dtype=torch.float64)
     v = torch.randn((1, 1, 3 * tpa.K, 2), generator=g, dtype=torch.float64)
+    u = torch.randn((3,) + res, generator=g, dtype=torch.float64)
     before = dict(tpa.LAUNCHES)
     got = tpa.grid_mom_pap_packed(x, c, T)
     ref = tpa.grid_mom_pap_packed_plain(x, c, T)
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert torch.equal(tpa.expand_packed(v, c[tpa.C_RED:], T), tpa.expand_packed_plain(v, c[tpa.C_RED:], T))
+    assert torch.equal(tpa.moments_packed(x, c, T), tpa.moments_packed_plain(x, c, T))
+    assert torch.equal(tpa.apply_reduced_packed(x, c, u), tpa.apply_reduced_packed_plain(x, c, u))
     assert tpa.LAUNCHES == before
 
 
