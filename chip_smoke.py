@@ -43,8 +43,11 @@ Phases (any failed check exits non-zero before the final line):
      on honey_coil 128^3 (untiled cube regions, max_regions 64, CELL_ARROW,
      tol 1e-3), once to warm and twice timed: converged, error < 1e-3,
      boundary_active == 0, equal iteration counts and bit-equal velocities
-     in the two timed runs, and each kernel's launches as the CG's applies
-     dictate (k iterations, a = 1 + k applies):
+     in the two timed runs, and each kernel's launches as the CG's passes
+     dictate.  The loop (krylov.PCGLoop) replays its pass from a CUDA graph
+     and polls done every POLL_PASSES passes, so it launches n passes,
+     the k iterations and the gated passes after convergence; with a = 1 +
+     n applies launched (pcg_init's and one per pass):
        moments 1, apply_reduced 1, expand a, grid_mom_pap and finish a - 1,
        the others 0;
   5. Path A with REGION_ARROW at 128^3, the same checks and the setup
@@ -69,7 +72,19 @@ Phases (any failed check exits non-zero before the final line):
      float32, tol 1e-5: both converge, velocities within 2e-4 max |v|;
  11. at 32^3 on the card, tol 1e-5: IDENTITY and DIAGONAL with fuse_update
      against the same step without it, and Path F on the card against the
-     CPU: all converge, velocities within 2e-4 max |v|.
+     CPU: all converge, velocities within 2e-4 max |v|;
+ 12. graph against eager at 128^3 on every path of phases 4-9: krylov.pcg
+     on one Krylov system through the graph and through the eager loop:
+     equal k and passes, x bit-equal, equal launches; ms per apply of
+     each (solve wall / applies), the capture seconds and the graph pool's
+     memory; each loop's device busy time, idle share and top kernels over
+     one poll block (torch.profiler); then each path's ms per apply from
+     the graphed step (phases 4-9) beside the eager and graphed loops';
+ 13. solve_chunked at 128^3 on Path A, segment_iters=100: bit-equal to
+     step with equal iterations; stopped by a callback after 2 segments
+     with a state file in a temporary directory (interrupted, 200
+     iterations), then resumed from it, bit-equal to the whole; with
+     max_seconds=0.0 one segment (100 iterations), not converged.
 Every launch count is read from counters set to 0 just before that run.
 forward_s and combine (kernels 12 and 13) have no caller in either
 package: they are checked in phases 2 and 3 and run on no path.
@@ -79,10 +94,12 @@ nvidia-smi line of the card; the last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -498,8 +515,9 @@ def main() -> None:
         applies = stats["operator_applies"]
         print(f"{label}: {seconds:.3f} s, iterations {stats['iterations']}, error {stats['error']:.3e}, "
               f"converged {stats['converged']}, boundary_active {stats['boundary_active']}, "
-              f"n_regions {stats['n_regions']}, applies {applies}, ms per apply (step wall / applies) "
-              f"{1e3 * seconds / max(applies, 1):.4f}, launches {launches}", flush=True)
+              f"n_regions {stats['n_regions']}, applies {applies}, loop passes {stats['loop_passes']}, "
+              f"ms per apply (step wall / applies) {1e3 * seconds / max(applies, 1):.4f}, launches {launches}",
+              flush=True)
         if not (stats["converged"] and stats["error"] < 1e-3 and stats["boundary_active"] == 0):
             fail(f"{label} did not converge cleanly: {stats}")
         if n_check is not None and not n_check(stats["n_regions"]):
@@ -509,13 +527,17 @@ def main() -> None:
         stats["ms_per_apply"] = 1e3 * seconds / max(applies, 1)
         return vel, stats, launches
 
+    step_ms = {}  # path: ms per apply of each timed (graphed) step
+
     def check_launches(path, label, stats, launches, record=True):
-        want = expected_launches(path, stats["operator_applies"])
+        want = expected_launches(path, 1 + stats["loop_passes"])
         if launches != want:
             fail(f"{label}: launches {launches}, expected {want}")
         for name, n in launches.items():
             if n and record:
                 table[name]["launches_by_path"][path] = n
+        if record:
+            step_ms.setdefault(path, []).append(stats["ms_per_apply"])
 
     def check_repeat(label, vel1, st1, vel2, st2):
         bit_equal = all(torch.equal(a, b) for a, b in zip(vel1, vel2))
@@ -531,6 +553,7 @@ def main() -> None:
     check_launches("A", "phase 4 Path A", st1, l1)
     check_launches("A", "phase 4 Path A", st2, l2)
     check_repeat("phase 4 Path A", vel1, st1, vel2, st2)
+    vel_a, st_a = vel1, st1
 
     drive(f"phase 5 REGION_ARROW {N_MAIN}^3 warm", p_r, lambda n: n >= 1)
     vel1, sr1, l1 = drive(f"phase 5 REGION_ARROW {N_MAIN}^3 timed 1", p_r, lambda n: n >= 1)
@@ -636,6 +659,120 @@ def main() -> None:
     print(f"phase 11 Path F {N_CPU}^3, card and CPU:", flush=True)
     p32f = p32.replace(fuse_update=True)
     agree("phase 11 Path F velocities, card against CPU", step_32("cuda", p32f), step_32("cpu", p32f))
+
+    # -- phase 12: the CG loop through the CUDA graph against the eager loop,
+    # on one Krylov system per path
+    from polystokes_tpu_torch import krylov
+
+    def profile_passes(loop, n):
+        """(device ms per pass, device span ms per pass, top kernels) of n
+        passes of a loop, from torch.profiler's device events; None where
+        the profiler records no device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            loop._passes(n)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not kernels:
+            return None
+        span = max(e.time_range.end for e in kernels) - min(e.time_range.start for e in kernels)
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        busy = sum(by_name.values())
+        return busy / n / 1e3, span / n / 1e3, [(name[:60], us / n / 1e3) for name, us in top], len(kernels) / n
+
+    loop_ms = {}
+    for path, p in (("A", p_a), ("A_region", p_r), ("unfused", p_a.replace(fuse_pap=False)), ("B_fused", p_b),
+                    ("B_unfused", p_b.replace(fuse_pap=False)), ("F", p_f), ("F_prime", p_f.replace(fuse_expand=False)),
+                    ("B_u", p_b.replace(fuse_update=True))):
+        c_cls, c_asm = solver._setup(grid, scene, p)
+        apply_k, apply_dot, fused, precond, b_k, x0_k = solver._build_krylov_system(grid, c_cls, c_asm, scene, p)
+        runs = {}
+        for graph in (False, True):
+            pa.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            carry = krylov.pcg_init(apply_k, b_k, x0_k, precond)
+            loop = krylov.PCGLoop(apply_k, precond, tol=p.tolerance, max_iters=p.max_iterations, apply_dot=apply_dot,
+                                  fused_update=fused, graph=graph)
+            res = krylov.pcg_result(loop.segment(carry), loop.passes)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            runs[graph] = (res, seconds, dict(pa.LAUNCHES), loop)
+        (r_e, s_e, l_e, _), (r_g, s_g, l_g, loop_g) = runs[False], runs[True]
+        bit_equal = torch.equal(r_g.x, r_e.x)
+        ms_e, ms_g = 1e3 * s_e / r_e.applies, 1e3 * s_g / r_g.applies
+        cap = loop_g.capture_seconds or 0.0
+        ms_g_run = 1e3 * (s_g - cap) / r_g.applies
+        loop_ms[path] = (ms_e, ms_g, ms_g_run)
+        print(f"phase 12 {path} {N_MAIN}^3 graph against eager: iterations {r_g.iterations} / {r_e.iterations}, "
+              f"passes {r_g.passes} / {r_e.passes} for {r_g.applies} applies, x bit-equal {bit_equal}, launches equal "
+              f"{l_g == l_e}; ms per apply (solve wall / applies) graph {ms_g:.4f} ({ms_g_run:.4f} without the "
+              f"capture), eager {ms_e:.4f}; capture {cap:.3f} s, graph pool {(loop_g.pool_bytes or 0) / 2**20:.1f} MiB",
+              flush=True)
+        if not (r_g.converged and r_e.converged):
+            fail(f"phase 12 {path}: a loop did not converge")
+        if r_g.passes > krylov.POLL_PASSES and loop_g.capture_seconds is None:
+            fail(f"phase 12 {path}: the graphed loop did not capture")
+        if not (r_g.iterations == r_e.iterations and r_g.passes == r_e.passes and bit_equal and l_g == l_e):
+            fail(f"phase 12 {path}: the graphed loop differs from the eager one")
+        if l_g != expected_launches(path, 1 + r_g.passes):
+            fail(f"phase 12 {path}: launches {l_g}, expected {expected_launches(path, 1 + r_g.passes)}")
+        # the device's busy and idle time over one poll block of each loop
+        # (converged, so every pass is gated: the same launches)
+        for label, lp in (("graph", loop_g), ("eager", runs[False][3])):
+            try:
+                prof = profile_passes(lp, krylov.POLL_PASSES)
+            except RuntimeError as err:  # the profiler itself, not the loop: the passes ran above
+                print(f"phase 12 {path} {label} profile failed (not measured): {err}", flush=True)
+                continue
+            if prof is None:
+                print(f"phase 12 {path} {label} profile: no device events recorded (not measured)", flush=True)
+                continue
+            busy, span, top, n_k = prof
+            print(f"phase 12 {path} {label} profile over {krylov.POLL_PASSES} passes: device busy {busy:.4f} ms a pass "
+                  f"of a {span:.4f} ms device span, idle share {1 - busy / span:.3f}, {n_k:.0f} kernels a pass; top: "
+                  + "; ".join(f"{name} {ms:.4f}" for name, ms in top), flush=True)
+        del runs, loop_g, carry, loop
+    for path, (ms_e, ms_g, ms_g_run) in loop_ms.items():
+        steps = " ".join(f"{m:.4f}" for m in step_ms.get(path, []))
+        print(f"phase 12 ms per apply {path}: graphed step {steps}; loop graph {ms_g:.4f} ({ms_g_run:.4f} without the "
+              f"capture), loop eager {ms_e:.4f}", flush=True)
+
+    # -- phase 13: solve_chunked on Path A
+    seg = 100
+    vel_c, _, st_c = solver.solve_chunked(grid, scene, p_a, segment_iters=seg)
+    equal_step = all(torch.equal(a, b) for a, b in zip(vel_c, vel_a))
+    print(f"phase 13 solve_chunked {N_MAIN}^3 Path A, segments of {seg}: iterations {st_c['iterations']} (step "
+          f"{st_a['iterations']}), bit-equal to step {equal_step}, interrupted {st_c['interrupted']}", flush=True)
+    if not (equal_step and st_c["iterations"] == st_a["iterations"] and not st_c["interrupted"]):
+        fail("phase 13: solve_chunked differs from step")
+    with tempfile.TemporaryDirectory() as tmp:
+        sp = os.path.join(tmp, "pcg_state.npz")
+        segs = [0]
+
+        def stop_after_two(_):
+            segs[0] += 1
+            return segs[0] >= 2
+
+        _, _, st_i = solver.solve_chunked(grid, scene, p_a, segment_iters=seg, callback=stop_after_two, state_path=sp)
+        vel_r, _, st_r = solver.solve_chunked(grid, scene, p_a, segment_iters=seg, state_path=sp, resume=True)
+    equal_resume = all(torch.equal(a, b) for a, b in zip(vel_r, vel_c))
+    print(f"phase 13 interrupted after 2 segments: interrupted {st_i['interrupted']}, iterations {st_i['iterations']}; "
+          f"resumed: iterations {st_r['iterations']}, bit-equal to the whole {equal_resume}", flush=True)
+    if not (st_i["interrupted"] and st_i["iterations"] == 2 * seg):
+        fail("phase 13: the callback did not stop the solve after 2 segments")
+    if not (equal_resume and st_r["iterations"] == st_c["iterations"] and not st_r["interrupted"]):
+        fail("phase 13: the resumed solve differs from the whole")
+    _, _, st_t = solver.solve_chunked(grid, scene, p_a, segment_iters=seg, max_seconds=0.0)
+    print(f"phase 13 max_seconds=0.0: interrupted {st_t['interrupted']}, iterations {st_t['iterations']}, converged "
+          f"{st_t['converged']}", flush=True)
+    if not (st_t["interrupted"] and st_t["iterations"] == seg and not st_t["converged"]):
+        fail("phase 13: max_seconds=0.0 did not stop after one segment")
 
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi's own "name, power.limit" line

@@ -9,12 +9,15 @@ configuration, CELL_ARROW preconditioned CG, on the packed kernel path::
     grid, scene = honey_coil(n=128, dtype=torch.float32, device="cuda")
     velocity, valid, stats = step(grid, scene, SolverParams(max_regions=64))
 
+``solve_chunked`` runs the same solve in CG segments that can be
+interrupted, timed out and resumed from a state file, as the JAX package's.
+On the card the CG iteration is replayed from a CUDA graph (``krylov``).
 Importing the package turns TF32 off (``precision.py``).
 """
 from .config import BasisOrder, MatrixScheme, PreconditionerType, SolverParams, SolverType
 from .grid import Grid
 from .precision import disable_tf32
-from .solver import Scene, step
+from .solver import Scene, solve_chunked, step
 
 disable_tf32()
 
@@ -26,5 +29,6 @@ __all__ = [
     "Scene",
     "SolverParams",
     "SolverType",
+    "solve_chunked",
     "step",
 ]

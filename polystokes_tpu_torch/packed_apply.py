@@ -47,10 +47,12 @@ into ``build/polystokes_tpu_torch/`` on first use and loaded with ctypes:
   preconditioner of its ``kind`` ("none", "diag" or "arrow") and returns
   the three loop dots as 0-dim tensors (``csrc/update_apply.cu``).
 
-``LAUNCHES`` counts the kernel launches of each wrapper.
+``LAUNCHES`` counts the kernel launches of each wrapper; under a CUDA
+graph, ``captured_launches`` and ``add_launches`` count each replay's.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -100,6 +102,27 @@ _KIND_CHANNELS = {"none": None, "diag": 7, "arrow": N_ARROW}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: yields a dict that, on exit, holds the
+    launches counted inside, which are taken back out of ``LAUNCHES``: a
+    capture launches nothing, and each replay adds them (``add_launches``)."""
+    before = dict(LAUNCHES)
+    counted = {}
+    try:
+        yield counted
+    finally:
+        for name, n in before.items():
+            counted[name] = LAUNCHES[name] - n
+            LAUNCHES[name] = n
+
+
+def add_launches(counted, times: int) -> None:
+    """Count ``times`` replays of a graph that launches ``counted``."""
+    for name, n in counted.items():
+        LAUNCHES[name] += n * times
 
 
 # ---------------------------------------------------------------------------
@@ -718,9 +741,10 @@ def combine_packed(xp, coeffs, sp, up):
     return out
 
 
-def _update_inputs(name, xp, rp, pp, alpha, factors, kind, extra, extra_shapes):
+def _update_inputs(name, xp, rp, pp, alpha, factors, kind, extra, extra_shapes, out=None):
     """Checks shared by the update wrappers; returns (device type, alpha as
-    a one-element tensor on xp's device)."""
+    a one-element tensor on xp's device).  ``out``, when given, is the pair
+    (x', r') of packed tensors the update writes, apart from every input."""
     if kind not in UPDATE_KINDS:
         raise ValueError(f"{name}: kind must be one of {tuple(UPDATE_KINDS)}, got {kind!r}")
     res = tuple(xp.shape[1:])
@@ -729,52 +753,72 @@ def _update_inputs(name, xp, rp, pp, alpha, factors, kind, extra, extra_shapes):
         raise ValueError(f"{name}: kind {kind!r} takes {'no factors' if n_f is None else f'{n_f} factor channels'}")
     tensors = [xp, rp, pp, *extra] + ([] if factors is None else [factors])
     shapes = [(7,) + res] * 3 + list(extra_shapes) + ([] if n_f is None else [(n_f,) + res])
+    if out is not None:
+        inputs = {t.data_ptr() for t in tensors}
+        if len(out) != 2 or out[0].data_ptr() == out[1].data_ptr() or any(t.data_ptr() in inputs for t in out):
+            raise ValueError(f"{name}: out must be two tensors apart from each other and from the inputs")
+        tensors, shapes = tensors + list(out), shapes + [(7,) + res] * 2
     dev = _check(name, tensors, shapes)
     return dev, torch.as_tensor(alpha, dtype=xp.dtype, device=xp.device).reshape(1)
 
 
-def _run_update(name, tensors, ints, xp, kind):
+def _into(out, result):
+    """The twin's 6-tuple with x' and r' copied into ``out`` when given."""
+    if out is None:
+        return result
+    out[0].copy_(result[0])
+    out[1].copy_(result[1])
+    return (out[0], out[1]) + tuple(result[2:])
+
+
+def _run_update(name, tensors, ints, xp, kind, out=None):
     """Launch an update kernel on (alpha, inputs..., factors) and return the
-    JAX 6-tuple; the [3, blocks] dot partials are summed in a fixed order."""
-    xo, ro, zo = (torch.empty_like(xp) for _ in range(3))
+    JAX 6-tuple, x' and r' in ``out`` when given; the [3, blocks] dot
+    partials are summed in a fixed order."""
+    xo, ro = (torch.empty_like(xp), torch.empty_like(xp)) if out is None else out
+    zo = torch.empty_like(xp)
     partials = torch.empty((3, -(-xp[0].numel() // PAP_BLOCK)), dtype=xp.dtype, device=xp.device)
     _launch(name, (*tensors, xo, ro, zo, partials), (*tuple(xp.shape[1:]), *ints, UPDATE_KINDS[kind]), xp.dtype)
     sums = torch.sum(partials, dim=1)
     return xo, ro, zo, sums[0], sums[1], sums[2]
 
 
-def cg_update_packed(xp, rp, pp, app, alpha, factors=None, kind="none"):
+def cg_update_packed(xp, rp, pp, app, alpha, factors=None, kind="none", out=None):
     """(x', r', z, <r',r'>, <x',x'>, <r',z>): x' = x + alpha p, r' = r -
     alpha Ap, z = M^-1 r' for the preconditioner ``kind`` with its
     ``factors`` ([13, ...] arrow, [7, ...] diagonal inverse, None); alpha
-    is a 0-dim tensor on the device, read there by the kernel."""
+    is a 0-dim tensor on the device, read there by the kernel.  ``out``
+    (x', r') names the tensors x' and r' are written to, else new ones."""
     res = tuple(xp.shape[1:])
-    dev, a = _update_inputs("cg_update_packed", xp, rp, pp, alpha, factors, kind, (app,), ((7,) + res,))
+    dev, a = _update_inputs("cg_update_packed", xp, rp, pp, alpha, factors, kind, (app,), ((7,) + res,), out)
     if dev == "cpu":
-        return cg_update_packed_plain(xp, rp, pp, app, a[0], factors, kind)
-    return _run_update("cg_update", (a, xp, rp, pp, app, factors), (), xp, kind)
+        return _into(out, cg_update_packed_plain(xp, rp, pp, app, a[0], factors, kind))
+    return _run_update("cg_update", (a, xp, rp, pp, app, factors), (), xp, kind, out)
 
 
-def finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, up, factors=None, kind="none"):
+def finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, up, factors=None, kind="none", out=None):
     """cg_update_packed with Ap = out_grid + [G Dt]^T (-u), finished in the
     kernel from the deferred (out_grid, u) pair."""
     res = tuple(xp.shape[1:])
     n = _coeff_channels("finish_update_packed", coeffs)
     dev, a = _update_inputs("finish_update_packed", xp, rp, pp, alpha, factors, kind, (coeffs, out_grid, up),
-                            ((n,) + res, (7,) + res, (3,) + res))
+                            ((n,) + res, (7,) + res, (3,) + res), out)
     if dev == "cpu":
-        return finish_update_packed_plain(xp, rp, pp, a[0], coeffs, out_grid, up, factors, kind)
-    return _run_update("finish_update", (a, coeffs, out_grid, up, xp, rp, pp, factors), (), xp, kind)
+        return _into(out, finish_update_packed_plain(xp, rp, pp, a[0], coeffs, out_grid, up, factors, kind))
+    return _run_update("finish_update", (a, coeffs, out_grid, up, xp, rp, pp, factors), (), xp, kind, out)
 
 
-def exp_finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, v_origin, T: int, factors=None, kind="none"):
+def exp_finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, v_origin, T: int, factors=None, kind="none",
+                             out=None):
     """finish_update_packed with u expanded in the kernel from the per-cube
     polynomial coefficients v [cs0, cs1, 3K, cs2] on the reduced-face masks
     of the 17-channel stack: u never reaches device memory."""
     res = tuple(xp.shape[1:])
     cs = _cube_dims(res, T)
     dev, a = _update_inputs("exp_finish_update_packed", xp, rp, pp, alpha, factors, kind, (coeffs, out_grid, v_origin),
-                            ((N_COEFF,) + res, (7,) + res, (cs[0], cs[1], 3 * K, cs[2])))
+                            ((N_COEFF,) + res, (7,) + res, (cs[0], cs[1], 3 * K, cs[2])), out)
     if dev == "cpu":
-        return exp_finish_update_packed_plain(xp, rp, pp, a[0], coeffs, out_grid, v_origin, T, factors, kind)
-    return _run_update("exp_finish_update", (a, coeffs, v_origin, out_grid, xp, rp, pp, factors), (T,), xp, kind)
+        return _into(out, exp_finish_update_packed_plain(xp, rp, pp, a[0], coeffs, out_grid, v_origin, T, factors,
+                                                         kind))
+    return _run_update("exp_finish_update", (a, coeffs, v_origin, out_grid, xp, rp, pp, factors), (T,), xp, kind,
+                       out)

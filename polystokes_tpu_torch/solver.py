@@ -18,8 +18,11 @@ under ``fuse_pap`` on the reduced step it also does the finish (and with
 from __future__ import annotations
 
 import dataclasses
+import os
+import time
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import krylov
@@ -308,14 +311,15 @@ def _fuse_expand_ok(params: SolverParams) -> bool:
 
 
 def make_fused_update(params: SolverParams, factors, cls: Classification, asm: Assembled):
-    """The fused CG update ``fused(x, r, p, Ap, alpha)`` of ``fuse_update``
-    for the pointwise preconditioners (CELL_ARROW: kind "arrow" on the
-    13-channel stack; DIAGONAL: "diag" on the packed inverse diagonal;
-    IDENTITY: "none"), else None, as in the JAX package: REGION_ARROW's
-    solve is not pointwise.  Ap is a stored A p (``cg_update_packed``) or,
-    on the reduced step, the deferred pair of
+    """The fused CG update ``fused(x, r, p, Ap, alpha, out=None)`` of
+    ``fuse_update`` for the pointwise preconditioners (CELL_ARROW: kind
+    "arrow" on the 13-channel stack; DIAGONAL: "diag" on the packed inverse
+    diagonal; IDENTITY: "none"), else None, as in the JAX package:
+    REGION_ARROW's solve is not pointwise.  Ap is a stored A p
+    (``cg_update_packed``) or, on the reduced step, the deferred pair of
     ``make_apply_packed_pap(defer_finish=True)``: (out_grid, v) goes to
-    ``exp_finish_update_packed``, (out_grid, u) to ``finish_update_packed``."""
+    ``exp_finish_update_packed``, (out_grid, u) to ``finish_update_packed``.
+    ``out`` (x', r') names the tensors the kernel writes x' and r' to."""
     if not params.fuse_update:
         return None
     if params.preconditioner == PreconditionerType.CELL_ARROW:
@@ -330,13 +334,13 @@ def make_fused_update(params: SolverParams, factors, cls: Classification, asm: A
     fuse_expand = _fuse_expand_ok(params)
     T = params.tile_size
 
-    def fused(x, r, p, ap, alpha):
+    def fused(x, r, p, ap, alpha, out=None):
         if isinstance(ap, tuple):
             og, tail = ap
             if fuse_expand:
-                return exp_finish_update_packed(x, r, p, alpha, coeffs, og, tail, T, factors=fstack, kind=kind)
-            return finish_update_packed(x, r, p, alpha, coeffs, og, tail, factors=fstack, kind=kind)
-        return cg_update_packed(x, r, p, ap, alpha, factors=fstack, kind=kind)
+                return exp_finish_update_packed(x, r, p, alpha, coeffs, og, tail, T, factors=fstack, kind=kind, out=out)
+            return finish_update_packed(x, r, p, alpha, coeffs, og, tail, factors=fstack, kind=kind, out=out)
+        return cg_update_packed(x, r, p, ap, alpha, factors=fstack, kind=kind, out=out)
 
     return fused
 
@@ -417,21 +421,26 @@ def build_rhs(grid: Grid, cls: Classification, asm: Assembled, params: SolverPar
     return transpose_from_faces(asm, fv) + asm.rhs_solid
 
 
-def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParams):
+def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParams, initial_guess=None, pfac=None):
     """(apply_K, apply_dot, fused_update, precond, b_K, x0_K) on the packed
-    layout: the unsharded, undeflated branch of the JAX package's builder,
-    zero initial guess; ``apply_dot`` is the fused apply with <p, A p>
-    under ``fuse_pap``, else None; ``fused_update`` the fused CG update
-    under ``fuse_update`` with a pointwise preconditioner, else None."""
+    layout: the unsharded, undeflated branch of the JAX package's
+    ``_build_krylov_system``; ``apply_dot`` is the fused apply with
+    <p, A p> under ``fuse_pap``, else None; ``fused_update`` the fused CG
+    update under ``fuse_update`` with a pointwise preconditioner, else
+    None.  ``initial_guess`` (a PTau) seeds the solve, else zero; ``pfac``
+    (``precond_factors_packed``) skips the factors, which
+    ``solve_chunked`` computes once."""
     R = effective_max_regions(grid, params)
     b_K = pack_ptau(build_rhs(grid, cls, asm, params, R))
     apply_K = make_apply_packed(grid, cls, asm, params, R)
-    pfac = precond_factors_packed(grid, cls, asm, params)
+    if pfac is None:
+        pfac = precond_factors_packed(grid, cls, asm, params)
     fused_update = make_fused_update(params, pfac, cls, asm)
     apply_dot = (make_apply_packed_pap(grid, cls, asm, params, R, defer_finish=_defer_finish(params, fused_update))
                  if params.fuse_pap else None)
     precond = make_preconditioner_packed(grid, cls, asm, params, pfac)
-    return apply_K, apply_dot, fused_update, precond, b_K, torch.zeros_like(b_K)
+    x0_K = torch.zeros_like(b_K) if initial_guess is None else pack_ptau(initial_guess).to(b_K.dtype)
+    return apply_K, apply_dot, fused_update, precond, b_K, x0_K
 
 
 def recover_velocity(grid: Grid, cls: Classification, asm: Assembled, x: PTau, params: SolverParams, R: int):
@@ -522,17 +531,12 @@ def check_pallas(grid: Grid, scene: Scene, params: SolverParams) -> SolverParams
     return params
 
 
-def step(grid: Grid, scene: Scene, params: SolverParams):
-    """One Stokes solve.  Returns (new_velocity, valid_masks, stats).
-    The packed kernels need ``tile_size`` to divide every resolution."""
+def _write_back(grid: Grid, scene: Scene, params: SolverParams, cls: Classification, asm: Assembled,
+                res: krylov.KrylovResult):
+    """Unpack, recover, write back, the boundary fail-safe,
+    ``keep_non_converged`` and the stats: the tail of ``step`` and
+    ``solve_chunked``."""
     R = effective_max_regions(grid, params)
-    cls, asm = _setup(grid, scene, params)
-    apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params)
-    if params.do_solve:
-        res = krylov.pcg(apply_K, b_K, x0_K, precond=precond, tol=params.tolerance, max_iters=params.max_iterations,
-                         apply_dot=apply_dot, fused_update=fused_update)
-    else:
-        res = krylov.KrylovResult(x=x0_K, iterations=0, error=0.0, converged=True, applies=0)
     x = unpack_ptau(res.x)
     v, w = recover_velocity(grid, cls, asm, x, params, R)
     new_vel, valid = apply_solution_to_velocity(grid, cls, asm, scene, v, w, params)
@@ -553,6 +557,7 @@ def step(grid: Grid, scene: Scene, params: SolverParams):
         "error": res.error,
         "converged": converged,
         "operator_applies": res.applies,
+        "loop_passes": res.passes,
         "n_pressures": n_center,
         "n_active_velocities": n_faces,
         "n_stresses": 3 * n_center + n_edges,
@@ -560,4 +565,107 @@ def step(grid: Grid, scene: Scene, params: SolverParams):
         "n_reduced_dofs": n_regions * params.reduced_dof,
         "region_overflow": bool(cls.region_overflow),
     }
+    return new_vel, valid, stats
+
+
+def _chunk_init(grid: Grid, scene: Scene, params: SolverParams, cls, asm, initial_guess=None, pfac=None):
+    """(carry, loop): the initial PCG carry and the ``krylov.PCGLoop`` that
+    holds the Krylov system, whose CUDA graph every segment replays (JAX's
+    ``_chunk_init`` returns the carry and rebuilds the system inside each
+    jitted segment)."""
+    apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params,
+                                                                                 initial_guess, pfac)
+    loop = krylov.PCGLoop(apply_K, precond, tol=params.tolerance, max_iters=params.max_iterations, apply_dot=apply_dot,
+                          fused_update=fused_update)
+    return krylov.pcg_init(apply_K, b_K, x0_K, precond), loop
+
+
+def _chunk_segment(loop: krylov.PCGLoop, carry: krylov.PCGCarry, segment_iters: int) -> krylov.PCGCarry:
+    """At most ``segment_iters`` more iterations of the loop from carry."""
+    return loop.segment(carry, segment_iters)
+
+
+def _chunk_finalize(grid: Grid, scene: Scene, params: SolverParams, cls, asm, carry: krylov.PCGCarry, passes: int = 0):
+    """(new_velocity, valid_masks, stats) from the final carry; ``passes``
+    is the loop passes launched, reported as ``loop_passes``."""
+    return _write_back(grid, scene, params, cls, asm, krylov.pcg_result(carry, passes))
+
+
+def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
+    """One Stokes solve.  Returns (new_velocity, valid_masks, stats).
+    ``initial_guess`` (optional PTau) seeds the Krylov solve, as in the JAX
+    package.  The packed kernels need ``tile_size`` to divide every
+    resolution."""
+    cls, asm = _setup(grid, scene, params)
+    if not params.do_solve:
+        x0_K = _build_krylov_system(grid, cls, asm, scene, params, initial_guess)[-1]
+        res = krylov.KrylovResult(x=x0_K, iterations=0, error=0.0, converged=True, applies=0, passes=0)
+        return _write_back(grid, scene, params, cls, asm, res)
+    carry, loop = _chunk_init(grid, scene, params, cls, asm, initial_guess)
+    return _chunk_finalize(grid, scene, params, cls, asm, loop.segment(carry), loop.passes)
+
+
+def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters: int = 500, max_seconds: float = None,
+                  callback=None, state_path: str = None, resume: bool = False, initial_guess=None):
+    """One Stokes solve as a host loop over CG segments of at most
+    ``segment_iters`` iterations, the Krylov state held on the device
+    between them, as the JAX package's ``solve_chunked`` (without its
+    ``mesh``).  It restores the reference's interrupt semantics (opInterrupt
+    polling, Classifier.cpp:73-74): Ctrl-C between segments returns the
+    partial result under ``keep_non_converged``.
+
+      * max_seconds: stop after the segment in which this much wall-clock
+        has passed (partial result)
+      * callback(stats_dict) -> truthy to request a stop
+      * state_path + resume: persist the PCG carry after each segment
+        (``np.savez``, keys leaf0..leaf6 = x, r, p, rsold, k, rre, done, as
+        the JAX package writes them) and resume a killed run from it (same
+        scene and params)
+
+    ``POLYSTOKES_VERBOSE=1`` prints each stage.  Returns (new_velocity,
+    valid_masks, stats) like ``step``, with ``stats["interrupted"]``."""
+    verbose = bool(int(os.environ.get("POLYSTOKES_VERBOSE", "0")))
+    last = [None]
+
+    def _v(msg):
+        if verbose:
+            now = time.monotonic()
+            dt = 0.0 if last[0] is None else now - last[0]
+            last[0] = now
+            print(f"[solve_chunked +{dt:7.1f}s] {msg}", flush=True)
+
+    t_start = time.monotonic()
+    _v("setup...")
+    cls, asm = _setup(grid, scene, params)
+    _v("precond factors...")
+    pfac = precond_factors_packed(grid, cls, asm, params)
+    _v("chunk init...")
+    carry, loop = _chunk_init(grid, scene, params, cls, asm, initial_guess, pfac)
+    _v("first segment...")
+    if resume and state_path and os.path.exists(state_path):
+        with np.load(state_path) as d:
+            carry = krylov.PCGCarry(*(torch.as_tensor(d[f"leaf{i}"]).to(device=t.device, dtype=t.dtype)
+                                      for i, t in enumerate(carry)))
+
+    interrupted = False
+    try:
+        while True:
+            carry = _chunk_segment(loop, carry, segment_iters)
+            k, done, rre = int(carry.k), bool(carry.done), float(carry.rre)
+            _v(f"segment done: k={k} rre={rre:.3e} done={done}")
+            if state_path:
+                np.savez(state_path, **{f"leaf{i}": t.cpu().numpy() for i, t in enumerate(carry)})
+            if callback is not None and callback({"iterations": k, "rre": rre, "done": done}):
+                interrupted = True
+            if done or k >= params.max_iterations or interrupted:
+                break
+            if max_seconds is not None and time.monotonic() - t_start > max_seconds:
+                interrupted = True
+                break
+    except KeyboardInterrupt:
+        # the reference's opInterrupt: abort mid-solve, keep partial state
+        interrupted = True
+
+    new_vel, valid, stats = _chunk_finalize(grid, scene, params, cls, asm, carry, loop.passes)
+    stats["interrupted"] = interrupted
     return new_vel, valid, stats
