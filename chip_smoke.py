@@ -84,7 +84,22 @@ Phases (any failed check exits non-zero before the final line):
      step with equal iterations; stopped by a callback after 2 segments
      with a state file in a temporary directory (interrupted, 200
      iterations), then resumed from it, bit-equal to the whole; with
-     max_seconds=0.0 one segment (100 iterations), not converged.
+     max_seconds=0.0 one segment (100 iterations), not converged;
+ 14. tiled mode (do_tile=True, tile 16, padding 2; the JAX suite's config
+     3): A_t, Path A on honey_coil 128^3, warm and twice timed with phase
+     4's checks (n_regions beside the TPU record's 152, printed); F_t (A_t
+     with fuse_update and fuse_expand) and R_t (A_t with REGION_ARROW), one
+     timed step each, converged with their paths' launches; S16 and S8,
+     Path A on armadillo_melt_si 256^3 at tile 16 and tile 8 (the suite's
+     configs 16 and 18, at the scene's density 1000 as the suite's
+     sample_density sets it; n_regions beside 753 and 3542, printed),
+     converged with their launches, with the setup seconds, ms per apply
+     and peak device memory; and the tiled 32^3 step at tile 8 on the card
+     against the CPU port (phase 10's bound).
+Phase 2 also holds the tile-dependent kernels (moments, expand,
+grid_mom_pap, exp_finish_update) against their twins at tile 8 on the
+tiled armadillo_melt_si 256^3 setup of S8, with their device times and
+shares of the bound.  Every earlier phase runs untiled (do_tile=False).
 Every launch count is read from counters set to 0 just before that run.
 forward_s and combine (kernels 12 and 13) have no caller in either
 package: they are checked in phases 2 and 3 and run on no path.
@@ -151,6 +166,14 @@ MAIN_PATH = {"moments": "A", "expand": "A", "apply_reduced": "A", "grid_mom_pap"
              "exp_finish_update": "F"}
 
 
+# the tiled paths of phase 14 launch as their untiled counterparts
+TILED_PATHS = {"A_t": "A", "F_t": "F", "R_t": "A_region", "S16": "A", "S8": "A"}
+TILE_8 = 8
+N_SI = 256
+# the JAX suite's TPU records (BENCH_SUITE.json), printed beside ours, not held
+JAX_REGIONS = {"A_t": 152, "S16": 753, "S8": 3542}
+
+
 def ptxas_summary(report: str):
     """One dict per compiled kernel of nvcc's -Xptxas -v report: the mangled
     entry, registers, static shared memory and spill bytes."""
@@ -189,10 +212,13 @@ def card_line() -> str:
 
 
 def params(dtype, tol, max_iters, **kw):
+    """The untiled main path's parameters (every path of phases 2-13), with
+    ``kw`` over them (phase 14 sets do_tile=True)."""
     from polystokes_tpu_torch import SolverParams
 
-    return SolverParams(dtype=dtype, tile_size=TILE, tile_padding=2, max_regions=64,
-                        tolerance=tol, max_iterations=max_iters, **kw)
+    base = dict(dtype=dtype, do_tile=False, tile_size=TILE, tile_padding=2, max_regions=64, tolerance=tol,
+                max_iterations=max_iters)
+    return SolverParams(**{**base, **kw})
 
 
 def median_ms(fn, n=20):
@@ -252,6 +278,7 @@ def bound(name, plane, small_bytes, itemsize, kind="arrow"):
 
 def expected_launches(path, applies):
     counts = dict.fromkeys(KERNELS, 0)
+    path = TILED_PATHS.get(path, path)
     if path == "A":
         counts.update(moments=1, apply_reduced=1, expand=applies, grid_mom_pap=applies - 1, finish=applies - 1)
     elif path == "A_region":
@@ -274,9 +301,10 @@ def expected_launches(path, applies):
     return counts
 
 
-def compare(name, got, ref):
+def compare(name, got, ref, label=None):
     """Max |diff| over the outputs (tuples: each, and the summed partials
     when the last is a partials vector); fails above KERNEL_RTOL of max |twin|."""
+    label = label or name
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
     worst = 0.0
@@ -288,10 +316,10 @@ def compare(name, got, ref):
             if gg.shape != rr.shape:
                 fail(f"{name} output {i}: shape {tuple(gg.shape)} against the twin's {tuple(rr.shape)}")
             err, scale = float((gg - rr).abs().max()), float(rr.abs().max())
-            print(f"phase 2 {name} output {i}: max|diff| {err:.3e} max|twin| {scale:.3e} rel {err / max(scale, 1e-30):.3e}",
+            print(f"phase 2 {label} output {i}: max|diff| {err:.3e} max|twin| {scale:.3e} rel {err / max(scale, 1e-30):.3e}",
                   flush=True)
             if not (err <= KERNEL_RTOL * scale) or scale == 0.0:
-                fail(f"{name} kernel disagrees with its twin: {err} > {KERNEL_RTOL} * {scale}")
+                fail(f"{label} kernel disagrees with its twin: {err} > {KERNEL_RTOL} * {scale}")
             worst = max(worst, err)
     return worst
 
@@ -373,16 +401,17 @@ def main() -> None:
         "combine": (lambda: pa.combine_packed(xp, coeffs, s_twin, u_twin),
                     lambda: pa.combine_packed_plain(xp, coeffs, s_twin, u_twin), 0),
     }
-    def measure(name, kernel, twin, small_bytes, kind=None):
-        """Compare a kernel with its twin, time both and reckon its bound."""
-        label = name if kind is None else f"{name} kind {kind}"
+    def measure(name, kernel, twin, small_bytes, kind=None, slots=plane, where=""):
+        """Compare a kernel with its twin, time both and reckon its bound
+        over ``slots`` slots of each channel."""
+        label = (name if kind is None else f"{name} kind {kind}") + where
         got, ref = kernel(), twin()
         torch.cuda.synchronize()
-        err = compare(label, got, ref)
+        err = compare(name, got, ref, label)
         ms_twin = median_ms(twin)
         ms_kernel = median_ms(kernel)
         ms_device = graph_ms(kernel)
-        bound_ms, bound_by = bound(name, plane, small_bytes, xp.element_size(), kind or "arrow")
+        bound_ms, bound_by = bound(name, slots, small_bytes, xp.element_size(), kind or "arrow")
         print(f"phase 2 {label}: kernel {ms_kernel:.4f} ms (device {ms_device:.4f} ms) twin {ms_twin:.4f} ms "
               f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms_kernel:.1f} % of the bound "
               f"({100 * bound_ms / ms_device:.1f} % on device time)", flush=True)
@@ -445,6 +474,48 @@ def main() -> None:
             table[name]["kinds"][kind] = m
     del rp, pp, factors
 
+    # the tile-dependent kernels at tile 8, on the tiled armadillo_melt_si
+    # 256^3 setup of phase 14's S8, kind arrow on its CELL_ARROW factors
+    from polystokes_tpu_torch.scenes.builders import armadillo_melt_si
+
+    grid_si, scene_si = armadillo_melt_si(n=N_SI, dtype=torch.float32, device=dev)
+    # the constant density of the scene's field (1000), which the JAX suite
+    # sets through solver.sample_density (benchmarks/suite.py:64); step
+    # does not read the field
+    si_density = float(scene_si.density.amin())
+    p_s8 = params(torch.float32, 1e-3, 12000, fuse_pap=True, do_tile=True, tile_size=TILE_8,
+                  constant_density=si_density)
+    t0 = time.perf_counter()
+    cls8, asm8 = solver._setup(grid_si, scene_si, p_s8)
+    coeffs8 = pa.pack_coeffs(asm8, cls8)
+    algebra8, red8 = solver._region_algebra_packed(grid_si, cls8, asm8, p_s8, effective_max_regions(grid_si, p_s8))
+    f8 = pa.pack_arrow_factors(solver.precond_factors_packed(grid_si, cls8, asm8, p_s8))
+    mask8 = pa.packed_masks(cls8, torch.float32)
+    gen8 = torch.Generator(device=dev).manual_seed(2)
+    x8, r8, q8 = ((torch.randn((7,) + grid_si.res, generator=gen8, device=dev) * mask8).contiguous() for _ in range(3))
+    v8 = algebra8(pa.moments_packed_plain(x8, coeffs8, TILE_8))
+    og8 = pa.grid_mom_pap_packed_plain(x8, coeffs8, TILE_8)[0]
+    torch.cuda.synchronize()
+    print(f"phase 2 setup {N_SI}^3 tile {TILE_8} (armadillo_melt_si, tiled): {time.perf_counter() - t0:.2f} s, "
+          f"n_regions {int(cls8.n_regions)}, R {effective_max_regions(grid_si, p_s8)}", flush=True)
+    mom8 = v8.numel() * v8.element_size()
+    cases8 = {
+        "moments": (lambda: pa.moments_packed(x8, coeffs8, TILE_8), lambda: pa.moments_packed_plain(x8, coeffs8, TILE_8),
+                    mom8),
+        "expand": (lambda: pa.expand_packed(v8, red8, TILE_8), lambda: pa.expand_packed_plain(v8, red8, TILE_8), mom8),
+        "grid_mom_pap": (lambda: pa.grid_mom_pap_packed(x8, coeffs8, TILE_8),
+                         lambda: pa.grid_mom_pap_packed_plain(x8, coeffs8, TILE_8), 2 * mom8),
+        "exp_finish_update": (
+            lambda: pa.exp_finish_update_packed(x8, r8, q8, alpha, coeffs8, og8, v8, TILE_8, f8, "arrow"),
+            lambda: pa.exp_finish_update_packed_plain(x8, r8, q8, alpha, coeffs8, og8, v8, TILE_8, f8, "arrow"), mom8),
+    }
+    for name, (kernel, twin, small_bytes) in cases8.items():
+        m = measure(name, kernel, twin, small_bytes, "arrow" if name == "exp_finish_update" else None,
+                    slots=x8[0].numel(), where=f" tile {TILE_8} {N_SI}^3")
+        table[name]["tile8"] = {"res": N_SI, **m}
+    del cls8, asm8, coeffs8, algebra8, red8, f8, mask8, x8, r8, q8, v8, og8, cases8
+    torch.cuda.empty_cache()
+
     # -- phase 3: the applies on the card
     yp = (torch.randn((7,) + grid.res, generator=gen, device=dev) * mask).contiguous()
     yu = (torch.randn((7,) + grid.res, generator=gen, device=dev) * mask_u).contiguous()
@@ -504,11 +575,13 @@ def main() -> None:
         fail(f"the REGION_ARROW solve is not symmetric: {asym} > {SYM_RTOL}")
 
     # -- phases 4-7: the paths, each with its own launch counts
-    def drive(label, p, n_check=None):
+    def drive(label, p, n_check=None, case=None):
+        """step() on ``case`` (grid, scene), honey_coil 128^3 by default."""
+        g, sc = case or (grid, scene)
         pa.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        vel, _, stats = solver.step(grid, scene, p)
+        vel, _, stats = solver.step(g, sc, p)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = dict(pa.LAUNCHES)
@@ -525,6 +598,7 @@ def main() -> None:
         if not all(bool(torch.isfinite(c).all()) for c in vel):
             fail(f"{label}: non-finite velocities")
         stats["ms_per_apply"] = 1e3 * seconds / max(applies, 1)
+        stats["seconds"] = seconds
         return vel, stats, launches
 
     step_ms = {}  # path: ms per apply of each timed (graphed) step
@@ -773,6 +847,49 @@ def main() -> None:
           f"{st_t['converged']}", flush=True)
     if not (st_t["interrupted"] and st_t["iterations"] == seg and not st_t["converged"]):
         fail("phase 13: max_seconds=0.0 did not stop after one segment")
+
+    # -- phase 14: tiled mode (the JAX suite's config 3 and, at 256^3, 16 and 18)
+    p_t = params(torch.float32, 1e-3, 12000, fuse_pap=True, do_tile=True)
+    solver.check_pallas(grid, scene, p_t)
+    tiled = lambda n: n >= 1  # noqa: E731
+    drive(f"phase 14 A_t {N_MAIN}^3 tile {TILE} warm", p_t, tiled)
+    vel1, sa1, l1 = drive(f"phase 14 A_t {N_MAIN}^3 tile {TILE} timed 1", p_t, tiled)
+    vel2, sa2, l2 = drive(f"phase 14 A_t {N_MAIN}^3 tile {TILE} timed 2", p_t, tiled)
+    check_launches("A_t", "phase 14 A_t", sa1, l1)
+    check_launches("A_t", "phase 14 A_t", sa2, l2)
+    check_repeat("phase 14 A_t", vel1, sa1, vel2, sa2)
+    print(f"phase 14 A_t n_regions {sa1['n_regions']} (the JAX suite's TPU record: {JAX_REGIONS['A_t']}); ms per apply "
+          f"{sa1['ms_per_apply']:.4f} and {sa2['ms_per_apply']:.4f} against Path A's {st1['ms_per_apply']:.4f} and "
+          f"{st2['ms_per_apply']:.4f}; iterations {sa1['iterations']} against Path A's {st1['iterations']}", flush=True)
+    _, st, launches = drive(f"phase 14 F_t {N_MAIN}^3 tile {TILE}", p_t.replace(fuse_update=True, fuse_expand=True), tiled)
+    check_launches("F_t", "phase 14 F_t", st, launches)
+    _, st, launches = drive(f"phase 14 R_t {N_MAIN}^3 tile {TILE}",
+                            p_t.replace(preconditioner=PreconditionerType.REGION_ARROW), tiled)
+    check_launches("R_t", "phase 14 R_t", st, launches)
+    for label, T in (("S16", TILE), ("S8", TILE_8)):
+        p_s = p_t.replace(tile_size=T, constant_density=si_density)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cls_s, _ = solver._setup(grid_si, scene_si, p_s)
+        torch.cuda.synchronize()
+        t_set = time.perf_counter() - t0
+        peak_set = torch.cuda.max_memory_allocated()
+        del cls_s
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _, st, launches = drive(f"phase 14 {label} armadillo_melt_si {N_SI}^3 tile {T}", p_s, tiled, (grid_si, scene_si))
+        peak = torch.cuda.max_memory_allocated()
+        check_launches(label, f"phase 14 {label}", st, launches, record=False)
+        print(f"phase 14 {label}: n_regions {st['n_regions']} (the JAX suite's TPU record: {JAX_REGIONS[label]}); "
+              f"setup (weights, classify, assemble) {t_set:.3f} s; ms per apply of the step without that setup "
+              f"{1e3 * (st['seconds'] - t_set) / st['operator_applies']:.4f}; peak device memory in the step "
+              f"{peak / 2**30:.3f} GiB, in its setup alone {peak_set / 2**30:.3f} GiB ({before / 2**30:.3f} GiB "
+              f"held before them)", flush=True)
+    p32t = params(torch.float32, 1e-5, 12000, fuse_pap=True, do_tile=True, tile_size=TILE_8)
+    print(f"phase 14 tiled {N_CPU}^3 tile {TILE_8}, card and CPU:", flush=True)
+    agree(f"phase 14 tiled {N_CPU}^3 tile {TILE_8} velocities, card against CPU", step_32("cuda", p32t),
+          step_32("cpu", p32t))
 
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi's own "name, power.limit" line

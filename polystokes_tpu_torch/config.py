@@ -6,8 +6,11 @@ torch dtype.  The port implements these families on the packed kernel
 path with CELL_ARROW, REGION_ARROW, DIAGONAL or IDENTITY preconditioned
 CG:
 
-* the untiled cube-region reduced step (``do_reduced_regions=True``,
-  ``do_tile=False``, ``cube_regions=True``);
+* the tiled reduced step (``do_reduced_regions=True``, ``do_tile=True``
+  with ``tile_padding >= 1``, the JAX default): one region per tile cube
+  at most;
+* the untiled cube-region reduced step (``do_tile=False``,
+  ``cube_regions=True``);
 * the uniform step (``do_reduced_regions=False``), the baseline the
   reduced step is measured against;
 
@@ -17,8 +20,8 @@ the JAX default) or off, and ``fuse_update`` (the fused CG update, with
 place) on or off.  A field set to a value outside these families
 raises ``NotImplementedError`` naming the ROADMAP.md item that ports it;
 nothing is ignored silently.  Where the JAX default lies outside them
-(``do_tile``, ``preconditioner``, ``bicgstab_fallback``, ``use_pallas``)
-the port's default is the supported value.
+(``preconditioner``, ``bicgstab_fallback``, ``use_pallas``) the port's
+default is the supported value.
 """
 from __future__ import annotations
 
@@ -70,7 +73,6 @@ NSAMPLES = 2
 
 # (field, supported values, ROADMAP.md item that ports the other values)
 _UNSUPPORTED = (
-    ("do_tile", (False,), "Queue 1 item 11 (tiled mode)"),
     ("cube_regions", (True,), "Queue 1 item 6 (segmented general regions)"),
     ("basis", (BasisOrder.QUADRATIC,), "Queue 1 item 11 (affine basis)"),
     ("cc_host_callback", (False,), "Queue 1 item 3 (host connected components)"),
@@ -108,7 +110,7 @@ class SolverParams:
 
     # -- reduction topology
     do_reduced_regions: bool = True
-    do_tile: bool = False
+    do_tile: bool = True
     tile_size: int = 16
     tile_padding: int = 2
     liquid_boundary_layer_size: int = 2
@@ -170,6 +172,13 @@ class SolverParams:
             raise ValueError("tile_size >= 1 and tile_padding >= 0 required")
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {self.dtype}")
+        if self.do_reduced_regions and self.do_tile and self.tile_padding == 0:
+            # tiles without padding slabs: JAX's packed path refuses them and
+            # runs the unpacked apply (pallas_apply.pallas_compatible)
+            raise NotImplementedError(
+                "SolverParams.do_tile=True with tile_padding=0 is not ported yet "
+                "(only tile_padding >= 1); see ROADMAP.md Queue 1 item 7 (the unpacked apply)"
+            )
         for name, supported, item in _UNSUPPORTED:
             if getattr(self, name) not in supported:
                 raise NotImplementedError(

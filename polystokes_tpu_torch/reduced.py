@@ -2,12 +2,12 @@
 ``polystokes_tpu.reduced``: region COMs, the least-squares fit, the reduced
 mass and interior-viscosity Galerkin matrices, and the J couplings.
 
-With ``cube_regions`` every tile cube holds at most one region
-(``classify.enforce_one_region_per_cube``), so each per-region sum is a
-per-cube reshape reduction followed by a scatter over the small
-[ncubes] array.  Faces of axis a at natural index f > 0 belong to cube
-(f-1)//T along a (index 0 is dropped); edges likewise along their two
-offset axes.
+Every tile cube holds at most one region (tiled regions are cubes; untiled
+ones pass ``classify.enforce_one_region_per_cube``), so each per-region
+sum is a per-cube reshape reduction followed by a fixed-order segmented
+sum over the small [ncubes] array (``RegionSum``).  Faces of axis a at
+natural index f > 0 belong to cube (f-1)//T along a (index 0 is dropped);
+edges likewise along their two offset axes.
 
 Every per-region matrix is a sum of w * m_k(p + d1) * m_l(p + d2) with
 constant shifts d, so one per-region moment vector of the degree-4
@@ -80,36 +80,53 @@ def block_broadcast(vals, facelike_axes, T: int, cs, out_shape):
     return x
 
 
-def cube_scatter_matrix(region_of_cube, R: int, dtype):
-    """[R, ncubes] 0/1 matrix whose row r marks the cubes of region r
-    (cubes without a region, -1, are in no row)."""
-    rows = torch.arange(R, dtype=region_of_cube.dtype, device=region_of_cube.device)
-    return (region_of_cube[None, :] == rows[:, None]).to(dtype)
+class RegionSum:
+    """Per-cube rows summed into their region slot: ``rsum(vals [ncubes,
+    ...]) -> [R, ...]``, a gather through ``table`` and a sum over its
+    fixed dimension.  No atomics (``index_add`` sums in another order on
+    every run on the card) and no [R, ncubes] tensor; the table is built
+    once, with host reads, so a CUDA graph replays the sum.  On the CPU the
+    sum folds in cube order, which is the JAX package's ``segment_sum`` bit
+    for bit; on the card it is one reduction over the table's columns (a
+    floating ``cumsum`` is not deterministic there)."""
 
+    def __init__(self, region_of_cube, R: int):
+        nc = region_of_cube.shape[0]
+        dev = region_of_cube.device
+        seg = torch.where(region_of_cube >= 0, region_of_cube.long(), R)  # cubes without a region: segment R
+        seg_sorted, order = torch.sort(seg, stable=True)  # by region, cube ids increasing within one
+        counts = torch.bincount(seg, minlength=R + 1)
+        m = max(int(counts[:R].max()), 1)
+        rank = torch.arange(nc, device=dev) - (torch.cumsum(counts, 0) - counts)[seg_sorted]
+        keep = seg_sorted < R
+        # [R, m]: row r holds region r's cube ids in increasing order, padded
+        # with nc (the appended zero row); m = 1 when tiled
+        self.table = torch.full((R, m), nc, dtype=torch.int64, device=dev)
+        self.table[seg_sorted[keep], rank[keep]] = order[keep]
+        self.R = R
 
-def _cube_scatter(vals, region_of_cube, R: int):
-    """Per-cube rows summed into their region slot -> [R, ...].  A product
-    with ``cube_scatter_matrix`` rather than ``index_add``, whose CUDA
-    atomics sum in a different order on every run: this order is fixed,
-    so a step on the card is reproducible."""
-    out = cube_scatter_matrix(region_of_cube, R, vals.dtype) @ vals.reshape(vals.shape[0], -1)
-    return out.reshape((R,) + tuple(vals.shape[1:]))
+    def __call__(self, vals):
+        flat = vals.reshape(vals.shape[0], -1)
+        flat = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))], dim=0)
+        per_region = flat.index_select(0, self.table.reshape(-1)).reshape(self.R, self.table.shape[1], -1)
+        out = per_region.sum(dim=1) if per_region.is_cuda else per_region.cumsum(dim=1)[:, -1]
+        return out.reshape((self.R,) + tuple(vals.shape[1:]))
 
 
 class _Accumulator:
     """Per-region reductions through the cube map (cube-major path)."""
 
     def __init__(self, grid: Grid, cls: Classification, params: SolverParams, R: int):
-        self.R = R
         self.T = params.tile_size
         self.cs = _cube_dims(grid, self.T)
         self.roc = cls.region_of_cube
+        self.rsum = RegionSum(cls.region_of_cube, R)
 
     def vec(self, vals, family):
         """vals [D, grid...] -> [R, D]."""
         fl = () if family == "cell" else EDGE_OFFSET_AXES[family[1]]
         cols = [block_sum(vals[d], fl, self.T, self.cs) for d in range(vals.shape[0])]
-        return _cube_scatter(torch.stack(cols, dim=-1), self.roc, self.R)
+        return self.rsum(torch.stack(cols, dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +230,11 @@ def _build_reduced_gram(grid, cls, com, velocity, viscosity_c, viscosity_e, para
         return _shift_moments(mom_local, d_cube + offs, CO, EX, max_pow)
 
     def gram_of(w, facelike=()):
-        M = _cube_scatter(cube_moments(w, facelike), roc, R)  # [R, P]
+        M = acc.rsum(cube_moments(w, facelike))  # [R, P]
         return M[:, idx_tab_t]  # [R, K, K]
 
     def moments1(g):
-        return _cube_scatter(cube_moments(g, ()), roc, R)[:, :K]
+        return acc.rsum(cube_moments(g, ()))[:, :K]
 
     def quad(AS1, G, AS2):
         return torch.einsum("dk,rkl,el->rde", AS1, G, AS2)
@@ -344,7 +361,8 @@ def _reduced_face(cls: Classification, a: int):
 
 def reduce_J_tiled(grid: Grid, cls: Classification, com, s_faces, params: SolverParams, R: int):
     """y = J x: per-cube moments of the reduced-masked face values s
-    against the K monomials, combined with the constant A matrices."""
+    against the K monomials, combined with the constant A matrices, summed
+    per region."""
     T = params.tile_size
     cs = _cube_dims(grid, T)
     y_cube = torch.zeros((cs[0] * cs[1] * cs[2], params.reduced_dof), dtype=params.dtype, device=com.device)
@@ -353,7 +371,7 @@ def reduce_J_tiled(grid: Grid, cls: Classification, com, s_faces, params: Solver
         mono = monomials_xyz(*_face_offset_grids(cls, com, a, params, T, cs), params.basis)
         mu = torch.stack([block_sum(s * m, (a,), T, cs) for m in mono], dim=-1)  # [nc, K]
         y_cube = y_cube + mu @ torch.as_tensor(monomial_matrix(a, params.basis), dtype=params.dtype, device=com.device).T
-    return _cube_scatter(y_cube, cls.region_of_cube, R)
+    return RegionSum(cls.region_of_cube, R)(y_cube)
 
 
 def expand_J_tiled(grid: Grid, cls: Classification, com, w, params: SolverParams):

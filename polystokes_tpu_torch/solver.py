@@ -62,7 +62,7 @@ from .packed_apply import (
     unpack_ptau,
 )
 from .precond import _arrow_solve_from, _safe_inv, cell_arrow_factors, region_schur_inv, schur_diagonal
-from .reduced import ReducedData, build_reduced, cube_scatter_matrix, expand_J, finalize_reduced, reduce_J
+from .reduced import ReducedData, RegionSum, build_reduced, expand_J, finalize_reduced, reduce_J
 from .weights import compute_weights
 
 
@@ -227,7 +227,7 @@ def _region_algebra_packed(grid: Grid, cls: Classification, asm: Assembled, para
     S = monomial_shift_matrix(cprime[:, 0], cprime[:, 1], cprime[:, 2], params.basis)  # [nc, K, K]
     safe_cube = roc.clamp(0, R - 1).long()
     cube_ok = (roc >= 0).to(dtype)
-    scatter = cube_scatter_matrix(roc, R, dtype)  # the deterministic region sums of reduced._cube_scatter
+    rsum = RegionSum(roc, R)  # built here, once: a static index tensor inside the captured pass
     red_packed = torch.stack([_face_to_slot(m.to(dtype), a) for a, m in enumerate(reduced_face_masks(cls))], dim=0).contiguous()
     mtx = asm.binv if matrix is None else matrix
 
@@ -235,7 +235,7 @@ def _region_algebra_packed(grid: Grid, cls: Classification, asm: Assembled, para
         m = mom.permute(0, 1, 3, 2).reshape(-1, 3, K)
         m_rel = torch.einsum("ckj,caj->cak", S, m)
         y = sum(m_rel[:, a, :] @ A_mats[a].T for a in range(3))  # [nc, D]
-        w = torch.einsum("rij,rj->ri", mtx, scatter @ y)
+        w = torch.einsum("rij,rj->ri", mtx, rsum(y))
         w_cube = w[safe_cube] * cube_ok[:, None]
         v_com = torch.stack([w_cube @ A_mats[a] for a in range(3)], dim=1)  # [nc, 3, K]
         v_origin = torch.einsum("ckj,cak->caj", S, v_com)

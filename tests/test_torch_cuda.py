@@ -27,7 +27,7 @@ def _require_cuda():
 
 def _setup(dtype, **kw):
     grid, scene = honey_coil(n=32, dtype=dtype, device="cuda")
-    params = SolverParams(dtype=dtype, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000, **kw)
+    params = SolverParams(do_tile=False, dtype=dtype, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000, **kw)
     cls, asm = tsolver._setup(grid, scene, params)
     return grid, scene, params, cls, asm
 
@@ -93,7 +93,7 @@ def test_cuda_uniform_kernels_match_twins(dtype):
 def test_cuda_step_matches_cpu(reduced, fuse_pap):
     """The step on the card (kernels) against the CPU (twins), fp64 32^3."""
     _require_cuda()
-    params = SolverParams(dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
+    params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
                           do_reduced_regions=reduced, fuse_pap=fuse_pap)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -113,7 +113,7 @@ def _solid_setup(dtype, tile=T):
     grid = Grid(res=(32, 32, 32), dx=1.0 / 32)
     scene = _base(grid, sdf.box((0.1, 0.1, 0.1), (0.9, 0.9, 0.9)), sdf.plane((0.15, 0.1, 1.0), 0.23), dtype, "cuda",
                   dt=1 / 48, viscosity=50.0)
-    params = SolverParams(dtype=dtype, tile_size=tile, max_regions=64)
+    params = SolverParams(do_tile=False, dtype=dtype, tile_size=tile, max_regions=64)
     cls, asm = tsolver._setup(grid, scene, params)
     cut = sum(int((is_active(cls.face_labels[a]) & (asm.ffw[a] > 0) & (asm.ffw[a] < 1)).sum()) for a in range(3))
     assert cut > 0 and int(cls.n_regions) >= 1
@@ -145,7 +145,7 @@ def test_cuda_transpose_kernels_match_twins(dtype):
 def test_cuda_region_arrow_step_matches_cpu():
     """The REGION_ARROW step (fuse_pap on) on the card against the CPU, fp64 32^3."""
     _require_cuda()
-    params = SolverParams(dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
+    params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
                           preconditioner=PreconditionerType.REGION_ARROW)
     out = {}
     for dev in ("cuda", "cpu"):
@@ -201,7 +201,7 @@ def test_cuda_fused_update_step_matches_cpu():
     """Path F (fuse_update with fuse_expand, CELL_ARROW) on the card against
     the CPU, fp64 32^3; every iteration's update is the expanding kernel."""
     _require_cuda()
-    params = SolverParams(dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
+    params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
                           fuse_update=True)
     out = {}
     for dev in ("cuda", "cpu"):

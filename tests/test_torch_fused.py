@@ -4,7 +4,7 @@ the JAX package, in fp64 on the CPU.
 The twins of ``grid_mom_pap_packed`` and ``finish_packed`` against the
 Pallas kernels (interpret mode), ``make_apply_packed_pap`` against the JAX
 one, its <x, A x> against the unfused apply, and the deterministic region
-sum of ``reduced._cube_scatter``.  The cases (honey_coil and the solid-cut
+sum of ``reduced.RegionSum``.  The cases (honey_coil and the solid-cut
 floor at 16^3, tile 8 and 16) are those of ``test_torch_packed_apply``.
 """
 import numpy as np
@@ -18,7 +18,7 @@ from polystokes_tpu import solver as jsolver
 
 from polystokes_tpu_torch import packed_apply as tpa
 from polystokes_tpu_torch import solver as tsolver
-from polystokes_tpu_torch.reduced import _cube_scatter
+from polystokes_tpu_torch.reduced import RegionSum
 
 from test_torch_packed_apply import _get, _rel
 
@@ -107,6 +107,6 @@ def test_cube_scatter_matches_index_add():
     vals = torch.from_numpy(rng.standard_normal((nc, 5, 7)) * 10.0 ** rng.integers(-3, 4, (nc, 1, 1)))
     seg = torch.where(roc >= 0, roc, R).long()
     ref = torch.zeros((R + 1, 5, 7), dtype=torch.float64).index_add(0, seg, vals)[:R]
-    got = _cube_scatter(vals, roc, R)
+    got = RegionSum(roc, R)(vals)
     assert got.shape == ref.shape
     assert float((got - ref).abs().max()) <= 1e-14 * float(ref.abs().max())

@@ -94,7 +94,7 @@ def _port_step(preconditioner, fuse_update, fuse_expand=True):
     key = (preconditioner, fuse_update, fuse_expand)
     if key not in _PORT:
         grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
-        params = SolverParams(dtype=torch.float64, tile_size=8, max_regions=64, tolerance=1e-3, max_iterations=2000,
+        params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=8, max_regions=64, tolerance=1e-3, max_iterations=2000,
                               preconditioner=PreconditionerType[preconditioner], fuse_update=fuse_update,
                               fuse_expand=fuse_expand)
         _PORT[key] = tstep(grid, scene, params)

@@ -156,7 +156,7 @@ def _ungated_pcg(apply_A, b, x0, precond, tol, max_iters, apply_dot=None, fused_
 @pytest.mark.parametrize("fuse_update", [False, True], ids=["A", "F"])
 def test_gated_loop_bit_equal_to_ungated(fuse_update):
     grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
-    params = SolverParams(dtype=torch.float64, tile_size=8, tile_padding=2, max_regions=64, tolerance=1e-3,
+    params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=8, tile_padding=2, max_regions=64, tolerance=1e-3,
                           max_iterations=2000, fuse_update=fuse_update)
     cls, asm = tsolver._setup(grid, scene, params)
     apply_K, apply_dot, fused, precond, b_K, x0_K = tsolver._build_krylov_system(grid, cls, asm, scene, params)

@@ -272,7 +272,7 @@ def _port_step(preconditioner, reduced=True):
     key = (preconditioner, reduced)
     if key not in _PORT:
         grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
-        params = SolverParams(dtype=torch.float64, tile_size=8, max_regions=64, tolerance=1e-3, max_iterations=2000,
+        params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=8, max_regions=64, tolerance=1e-3, max_iterations=2000,
                               preconditioner=preconditioner, do_reduced_regions=reduced)
         _PORT[key] = tstep(grid, scene, params)
     return _PORT[key]

@@ -97,16 +97,20 @@ def test_import_leaves_jax_out():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
+# tiles without padding (do_tile is on by default) have no packed path in JAX
+_ITEM = {"tile_padding": r"ROADMAP.md Queue 1 item 7 \(the unpacked apply\)"}
+
+
 @pytest.mark.parametrize("field, value", [
-    ("do_tile", True), ("cube_regions", False), ("coeff_bf16", True), ("deflation", True),
+    ("tile_padding", 0), ("cube_regions", False), ("coeff_bf16", True), ("deflation", True),
     ("cc_host_callback", True), ("use_pallas", False), ("bicgstab_fallback", True),
 ])
 def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match=_ITEM.get(field, "ROADMAP.md")):
         SolverParams(**{field: value})
 
 
-@pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions", "fuse_update", "fuse_expand"])
+@pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions", "fuse_update", "fuse_expand", "do_tile"])
 @pytest.mark.parametrize("value", [True, False])
 def test_ported_options_construct(field, value):
     assert getattr(SolverParams(**{field: value}), field) is value
@@ -114,6 +118,11 @@ def test_ported_options_construct(field, value):
 
 def test_fuse_pap_defaults_on_as_in_jax():
     assert SolverParams().fuse_pap and JParams().fuse_pap
+
+
+def test_do_tile_defaults_on_as_in_jax():
+    assert SolverParams().do_tile and JParams().do_tile
+    assert SolverParams(do_tile=True, tile_size=16, tile_padding=2).do_tile
 
 
 def test_builders_default_to_the_card():
@@ -132,7 +141,7 @@ def _boundary_liquid():
 
     grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
     scene = dataclasses.replace(scene, surface_sdf=torch.full(grid.res, -1.0, dtype=torch.float64))
-    return grid, scene, SolverParams(dtype=torch.float64, tile_size=8, max_regions=64)
+    return grid, scene, SolverParams(do_tile=False, dtype=torch.float64, tile_size=8, max_regions=64)
 
 
 def test_check_pallas_raises_on_boundary_liquid():
