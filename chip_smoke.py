@@ -96,10 +96,20 @@ Phases (any failed check exits non-zero before the final line):
      converged with their launches, with the setup seconds, ms per apply
      and peak device memory; and the tiled 32^3 step at tile 8 on the card
      against the CPU port (phase 10's bound).
+ 15. the affine basis (BasisOrder.AFFINE, the CLI's --affine), tiled (tile
+     16, padding 2) on honey_coil 128^3, f32, tol 1e-3: A_aff (Path A,
+     CELL_ARROW, fuse_pap) and F_aff (fuse_update with fuse_expand), each
+     warm and twice timed with phase 4's checks (converged, exact launches
+     of the K = 4 kernels, bit-equal repeats); the CLI test's
+     configuration (affine, DIAGONAL, tile 8) at 128^3, one step; and the
+     affine 32^3 step on the card against the CPU port (phase 10's bound).
 Phase 2 also holds the tile-dependent kernels (moments, expand,
 grid_mom_pap, exp_finish_update) against their twins at tile 8 on the
 tiled armadillo_melt_si 256^3 setup of S8, with their device times and
-shares of the bound.  Every earlier phase runs untiled (do_tile=False).
+shares of the bound, and the K = 4 forms of those four kernels (the
+affine basis: 12 moments and coefficients a cube) at both shapes; the
+kernel table lists them as <name>_k4, with the launches of A_aff (F_aff
+for exp_finish_update_k4).  Phases 2-13 run untiled (do_tile=False).
 Every launch count is read from counters set to 0 just before that run.
 forward_s and combine (kernels 12 and 13) have no caller in either
 package: they are checked in phases 2 and 3 and run on no path.
@@ -166,8 +176,16 @@ MAIN_PATH = {"moments": "A", "expand": "A", "apply_reduced": "A", "grid_mom_pap"
              "exp_finish_update": "F"}
 
 
-# the tiled paths of phase 14 launch as their untiled counterparts
+# the tiled paths of phase 14 and the affine ones of phase 15 launch as
+# their untiled quadratic counterparts
 TILED_PATHS = {"A_t": "A", "F_t": "F", "R_t": "A_region", "S16": "A", "S8": "A"}
+AFFINE_PATHS = {"A_aff": "A", "F_aff": "F", "D8_aff": "A"}
+# the kernels that read the basis: their K = 4 forms are rows <name>_k4 of
+# the kernel table, launched on the affine paths
+BASIS_KERNELS = ("moments", "expand", "grid_mom_pap", "exp_finish_update")
+K4 = "_k4"
+MAIN_PATH.update({"moments_k4": "A_aff", "expand_k4": "A_aff", "grid_mom_pap_k4": "A_aff",
+                  "exp_finish_update_k4": "F_aff"})
 TILE_8 = 8
 N_SI = 256
 # the JAX suite's TPU records (BENCH_SUITE.json), printed beside ours, not held
@@ -278,7 +296,7 @@ def bound(name, plane, small_bytes, itemsize, kind="arrow"):
 
 def expected_launches(path, applies):
     counts = dict.fromkeys(KERNELS, 0)
-    path = TILED_PATHS.get(path, path)
+    path = {**TILED_PATHS, **AFFINE_PATHS}.get(path, path)
     if path == "A":
         counts.update(moments=1, apply_reduced=1, expand=applies, grid_mom_pap=applies - 1, finish=applies - 1)
     elif path == "A_region":
@@ -333,7 +351,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
 
     from polystokes_tpu_torch import packed_apply as pa
-    from polystokes_tpu_torch import PreconditionerType, solver
+    from polystokes_tpu_torch import BasisOrder, PreconditionerType, solver
     from polystokes_tpu_torch.classify import effective_max_regions
     from polystokes_tpu_torch.scenes.builders import honey_coil
 
@@ -472,7 +490,39 @@ def main() -> None:
                                "replaces": replaces, "launches": None, **m, "library_ms": None,
                                "launches_by_path": {}, "kinds": {}}
             table[name]["kinds"][kind] = m
-    del rp, pp, factors
+
+    # the K = 4 forms of the kernels that read the basis (the affine basis:
+    # 12 moments and coefficients a cube), on the same inputs; the affine
+    # coefficients are the first four monomials of each axis of v.  Bounds:
+    # the same channels, the smaller per-cube arrays, the quadratic form's
+    # flop count (the bytes bound either way)
+    aff = BasisOrder.AFFINE
+
+    def affine_v(v10):
+        return torch.cat([v10[:, :, 10 * a:10 * a + 4] for a in range(3)], dim=2).contiguous()
+
+    def affine_cases(x_, c_, v_, red_, og_, r_, p_, f_, t_):
+        """(kernel, twin, per-cube bytes) of each K = 4 form at tile t_."""
+        mb = v_.numel() * v_.element_size()
+        return {
+            "moments": (lambda: pa.moments_packed(x_, c_, t_, aff), lambda: pa.moments_packed_plain(x_, c_, t_, aff), mb),
+            "expand": (lambda: pa.expand_packed(v_, red_, t_, aff), lambda: pa.expand_packed_plain(v_, red_, t_, aff), mb),
+            "grid_mom_pap": (lambda: pa.grid_mom_pap_packed(x_, c_, t_, aff),
+                             lambda: pa.grid_mom_pap_packed_plain(x_, c_, t_, aff), 2 * mb),
+            "exp_finish_update": (
+                lambda: pa.exp_finish_update_packed(x_, r_, p_, alpha, c_, og_, v_, t_, f_, "arrow", basis=aff),
+                lambda: pa.exp_finish_update_packed_plain(x_, r_, p_, alpha, c_, og_, v_, t_, f_, "arrow", aff), mb),
+        }
+
+    for name, (kernel, twin, small_bytes) in affine_cases(xp, coeffs, affine_v(v), red, out_grid, rp, pp,
+                                                          factors["arrow"], TILE).items():
+        src, replaces = KERNELS[name][:2]
+        table[name + K4] = {"name": name + K4, "route": "cuda", "source": f"polystokes_tpu_torch/csrc/{src}",
+                            "replaces": replaces, "basis": "affine (K = 4)", "launches": None,
+                            **measure(name, kernel, twin, small_bytes, "arrow" if name == "exp_finish_update" else None,
+                                      where=" affine K=4"),
+                            "library_ms": None, "launches_by_path": {}}
+    del rp, pp, factors, kernel, twin  # the last lambdas hold their inputs
 
     # the tile-dependent kernels at tile 8, on the tiled armadillo_melt_si
     # 256^3 setup of phase 14's S8, kind arrow on its CELL_ARROW factors
@@ -513,7 +563,12 @@ def main() -> None:
         m = measure(name, kernel, twin, small_bytes, "arrow" if name == "exp_finish_update" else None,
                     slots=x8[0].numel(), where=f" tile {TILE_8} {N_SI}^3")
         table[name]["tile8"] = {"res": N_SI, **m}
-    del cls8, asm8, coeffs8, algebra8, red8, f8, mask8, x8, r8, q8, v8, og8, cases8
+    for name, (kernel, twin, small_bytes) in affine_cases(x8, coeffs8, affine_v(v8), red8, og8, r8, q8, f8,
+                                                          TILE_8).items():
+        m = measure(name, kernel, twin, small_bytes, "arrow" if name == "exp_finish_update" else None,
+                    slots=x8[0].numel(), where=f" affine K=4 tile {TILE_8} {N_SI}^3")
+        table[name + K4]["tile8"] = {"res": N_SI, **m}
+    del cls8, asm8, coeffs8, algebra8, red8, f8, mask8, x8, r8, q8, v8, og8, cases8, kernel, twin
     torch.cuda.empty_cache()
 
     # -- phase 3: the applies on the card
@@ -609,7 +664,10 @@ def main() -> None:
             fail(f"{label}: launches {launches}, expected {want}")
         for name, n in launches.items():
             if n and record:
-                table[name]["launches_by_path"][path] = n
+                # an affine path's launches of a kernel that reads the basis
+                # are its K = 4 form's
+                row = name + K4 if path in AFFINE_PATHS and name in BASIS_KERNELS else name
+                table[row]["launches_by_path"][path] = n
         if record:
             step_ms.setdefault(path, []).append(stats["ms_per_apply"])
 
@@ -688,15 +746,6 @@ def main() -> None:
     _, st, launches = drive(f"phase 9 REGION_ARROW fuse_update=True {N_MAIN}^3", p_r.replace(fuse_update=True),
                             lambda n: n >= 1)
     check_launches("A_region", "phase 9 REGION_ARROW fuse_update=True", st, launches, record=False)
-
-    for name, entry in table.items():
-        if MAIN_PATH[name] is None:
-            entry["launches"] = 0
-            print(f"{name}: no caller in either package, run on no path (checked in phases 2 and 3)", flush=True)
-            continue
-        entry["launches"] = entry["launches_by_path"].get(MAIN_PATH[name], 0)
-        if entry["launches"] <= 0:
-            fail(f"{name} was not launched on its path {MAIN_PATH[name]}")
 
     def step_32(where, p):
         g32, s32 = honey_coil(n=N_CPU, dtype=torch.float32, device=where)
@@ -890,6 +939,43 @@ def main() -> None:
     print(f"phase 14 tiled {N_CPU}^3 tile {TILE_8}, card and CPU:", flush=True)
     agree(f"phase 14 tiled {N_CPU}^3 tile {TILE_8} velocities, card against CPU", step_32("cuda", p32t),
           step_32("cpu", p32t))
+
+    # -- phase 15: the affine basis (the CLI's --affine), tiled as phase 14
+    p_aff = p_t.replace(basis=BasisOrder.AFFINE)
+    solver.check_pallas(grid, scene, p_aff)
+    aff_steps = {}
+    for label, p in (("A_aff", p_aff), ("F_aff", p_aff.replace(fuse_update=True, fuse_expand=True))):
+        drive(f"phase 15 {label} {N_MAIN}^3 tile {TILE} warm", p, tiled)
+        vel1, s1, l1 = drive(f"phase 15 {label} {N_MAIN}^3 tile {TILE} timed 1", p, tiled)
+        vel2, s2, l2 = drive(f"phase 15 {label} {N_MAIN}^3 tile {TILE} timed 2", p, tiled)
+        check_launches(label, f"phase 15 {label}", s1, l1)
+        check_launches(label, f"phase 15 {label}", s2, l2)
+        check_repeat(f"phase 15 {label}", vel1, s1, vel2, s2)
+        aff_steps[label] = (s1, s2)
+    (a1, a2), (f1, f2) = aff_steps["A_aff"], aff_steps["F_aff"]
+    print(f"phase 15 affine: n_regions {a1['n_regions']}, iterations A_aff {a1['iterations']} F_aff "
+          f"{f1['iterations']} (A_t {sa1['iterations']}); ms per apply A_aff {a1['ms_per_apply']:.4f} and "
+          f"{a2['ms_per_apply']:.4f}, F_aff {f1['ms_per_apply']:.4f} and {f2['ms_per_apply']:.4f}, against A_t's "
+          f"{sa1['ms_per_apply']:.4f} and {sa2['ms_per_apply']:.4f}", flush=True)
+    # the CLI test's configuration (tests/test_io_cli.py: affine, DIAGONAL,
+    # tile 8), tiled, at 128^3
+    _, st, launches = drive(f"phase 15 D8_aff (affine, DIAGONAL, tile {TILE_8}) {N_MAIN}^3",
+                            p_aff.replace(tile_size=TILE_8, preconditioner=PreconditionerType.DIAGONAL,
+                                          max_iterations=20000), tiled)
+    check_launches("D8_aff", "phase 15 D8_aff", st, launches, record=False)
+    p32aff = p32t.replace(basis=BasisOrder.AFFINE)
+    print(f"phase 15 affine {N_CPU}^3 tile {TILE_8}, card and CPU:", flush=True)
+    agree(f"phase 15 affine {N_CPU}^3 tile {TILE_8} velocities, card against CPU", step_32("cuda", p32aff),
+          step_32("cpu", p32aff))
+
+    for name, entry in table.items():
+        if MAIN_PATH[name] is None:
+            entry["launches"] = 0
+            print(f"{name}: no caller in either package, run on no path (checked in phases 2 and 3)", flush=True)
+            continue
+        entry["launches"] = entry["launches_by_path"].get(MAIN_PATH[name], 0)
+        if entry["launches"] <= 0:
+            fail(f"{name} was not launched on its path {MAIN_PATH[name]}")
 
     print(json.dumps({"kernels": list(table.values())}), flush=True)
     print(card_line(), flush=True)  # nvidia-smi's own "name, power.limit" line

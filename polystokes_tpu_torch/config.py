@@ -17,7 +17,9 @@ CG:
 each with ``fuse_pap`` on (the fused apply that also returns <p, A p>,
 the JAX default) or off, and ``fuse_update`` (the fused CG update, with
 ``fuse_expand`` choosing the kernel that expands the region polynomials in
-place) on or off.  A field set to a value outside these families
+place) on or off, and the reduced steps in either basis (``basis``
+QUADRATIC, the default, or AFFINE, the CLI's ``--affine``).  A field set
+to a value outside these families
 raises ``NotImplementedError`` naming the ROADMAP.md item that ports it;
 nothing is ignored silently.  Where the JAX default lies outside them
 (``preconditioner``, ``bicgstab_fallback``, ``use_pallas``) the port's
@@ -74,7 +76,6 @@ NSAMPLES = 2
 # (field, supported values, ROADMAP.md item that ports the other values)
 _UNSUPPORTED = (
     ("cube_regions", (True,), "Queue 1 item 6 (segmented general regions)"),
-    ("basis", (BasisOrder.QUADRATIC,), "Queue 1 item 11 (affine basis)"),
     ("cc_host_callback", (False,), "Queue 1 item 3 (host connected components)"),
     ("matrix_scheme", (MatrixScheme.PRESSURE_STRESS,), "Queue 1 item 13 (host explicit schemes)"),
     ("solver_type", (SolverType.PCG_MATRIX_VECTOR_PRODUCTS,), "Queue 1 item 11 (other solvers)"),

@@ -52,10 +52,13 @@
 //   index division.  The moments keep 9 sums per thread (chi s px^e, e =
 //   0..2, per axis): a thread's y and z are fixed over the march, so its 30
 //   moments are formed once at the end and block_sums adds them in a fixed
-//   order.  Where a cube needs several blocks (T above 16), each writes its
-//   own moments (and partial) and the wrapper sums them over a leading
-//   dimension; the uniform partials are one per block, summed by the
-//   caller.  No atomics: the result does not depend on block order.  The
+//   order.  The moment modes are templated on K, the monomials of the basis
+//   (stencil.cuh): the affine basis (K = 4) keeps 6 sums (e = 0, 1) and
+//   forms 12 moments a cube at stride 3K = 12, with the same arithmetic and
+//   sum order for the moments it shares with K = 10.  Where a cube needs
+//   several blocks (T above 16), each writes its own moments (and
+//   partial) and the wrapper sums them over a leading dimension; the
+//   uniform partials are one per block, summed by the caller.  No atomics: the result does not depend on block order.  The
 //   window (46 656 B at T 16 in f32, 57 024 B for the 4 x 64 column, 31 104
 //   B for WINDOW_MOM's g, h at T 16, twice that in f64) may exceed the 48 KB
 //   a block gets by default: the launch then opts in to more
@@ -92,7 +95,9 @@ inline int window_bytes(int mode, int by, int bz, int itemsize) {
 // the step's loads, all in flight together, need; WINDOW_MOM in f32,
 // without w and out, four (64 registers, no spill; f64 spills at 64 and
 // keeps two).
-template <typename T, int MODE>
+// K: the basis's monomials, read by the moment modes only (the apply modes
+// exist for K = 10 alone).
+template <typename T, int MODE, int K = K_QUADRATIC>
 __global__ void __launch_bounds__(kThreads, MODE == WINDOW_MOM && sizeof(T) == 4 ? 4 : 2)
 plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* __restrict__ u, T* __restrict__ out,
                     T* __restrict__ mom, T* __restrict__ partials, Dims d, int run) {
@@ -169,13 +174,16 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* _
     return v;
   };
 
-  // sm_p[a][e] = sum over the column of chi_a s_a px^e (e = 0, 1, 2); the
-  // moments' y and z factors are the thread's own, applied once at the end
-  T sm_p[3][3];
+  // sm_p[a][e] = sum over the column of chi_a s_a px^e (e = 0, 1, 2; the
+  // affine basis has no x^2, so e = 0, 1); the moments' y and z factors are
+  // the thread's own, applied once at the end
+  static_assert(K == K_QUADRATIC || K == K_AFFINE, "K is 10 (quadratic) or 4 (affine)");
+  constexpr int NP = K == K_QUADRATIC ? 3 : 2;
+  T sm_p[3][NP];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int e = 0; e < 3; ++e) sm_p[a][e] = T(0);
+    for (int e = 0; e < NP; ++e) sm_p[a][e] = T(0);
   T dot = T(0);
 
   // the face value w_a at slot q from s_a: the grid branch's, or with
@@ -207,7 +215,7 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* _
         const T px = T(i - x0) + (a == 0 ? T(0.5) : T(0));
         sm_p[a][0] += sm;
         sm_p[a][1] += sm * px;
-        sm_p[a][2] += sm * (px * px);
+        if constexpr (K == K_QUADRATIC) sm_p[a][2] += sm * (px * px);
       }
     }
   };
@@ -324,9 +332,9 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* _
   }
   if constexpr (MOM) {
     // acc[a*K + m]: this thread's share of the moments, monomials
-    // [1, x, y, z, x^2, xy, xz, y^2, yz, z^2] at cube-local face positions
-    // (+0.5 on the face axis); acc[3K] (grid_mom_pap): the <x, out_grid>
-    // partial
+    // [1, x, y, z, x^2, xy, xz, y^2, yz, z^2] (K = 10) or [1, x, y, z]
+    // (K = 4) at cube-local face positions (+0.5 on the face axis); acc[3K]
+    // (grid_mom_pap): the <x, out_grid> partial
     constexpr int N = 3 * K + (MODE == WINDOW_GRID_MOM ? 1 : 0);
     const int tile = run, c0 = blockIdx.z, c1 = y0 / tile, c2 = z0 / tile;
     T acc[N];
@@ -340,12 +348,14 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* _
       m[1] = s1;
       m[2] = py * s0;
       m[3] = pz * s0;
-      m[4] = sm_p[a][2];
-      m[5] = py * s1;
-      m[6] = pz * s1;
-      m[7] = (py * py) * s0;
-      m[8] = (py * pz) * s0;
-      m[9] = (pz * pz) * s0;
+      if constexpr (K == K_QUADRATIC) {
+        m[4] = sm_p[a][2];
+        m[5] = py * s1;
+        m[6] = pz * s1;
+        m[7] = (py * py) * s0;
+        m[8] = (py * pz) * s0;
+        m[9] = (pz * pz) * s0;
+      }
     }
     if constexpr (MODE == WINDOW_GRID_MOM) acc[3 * K] = dot;
     const T* total = block_sums(acc);
@@ -385,28 +395,29 @@ finish_kernel(const T* __restrict__ c, const T* __restrict__ out_grid, const T* 
 // memory a block gets by default needs the kernel's opt-in, up to what the
 // device allows (227 KB a block on the H100, room for every column of 256
 // slots in f64); a window beyond that is refused here and the launch fails.
-template <typename T, int MODE>
+template <typename T, int MODE, int K = K_QUADRATIC>
 cudaError_t window_opt_in(int bytes) {
   static const int static_bytes = [] {
     cudaFuncAttributes attr{};
-    return cudaFuncGetAttributes(&attr, plane_window_kernel<T, MODE>) == cudaSuccess ? (int)attr.sharedSizeBytes : 0;
+    return cudaFuncGetAttributes(&attr, plane_window_kernel<T, MODE, K>) == cudaSuccess ? (int)attr.sharedSizeBytes : 0;
   }();
   if (static_bytes + bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(plane_window_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return cudaFuncSetAttribute(plane_window_kernel<T, MODE, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // One launch of plane_window_kernel: by x bz columns over runs of `run`
-// planes (the moment modes: run = tile, and the column divides the cube).
-template <typename T, int MODE>
+// planes (the moment modes: run = tile, and the column divides the cube;
+// K monomials).
+template <typename T, int MODE, int K = K_QUADRATIC>
 int plane_window(const T* x, const T* c, const T* u, T* out, T* mom, T* partials, int nx, int ny, int nz, int run, int by,
                  int bz, cudaStream_t stream) {
   if (by < 1 || bz < 1 || by * bz > kThreads || run < 1) return (int)cudaErrorInvalidValue;
   if ((MODE == WINDOW_GRID_MOM || MODE == WINDOW_MOM) && (run % by || run % bz)) return (int)cudaErrorInvalidValue;
   const int bytes = window_bytes(MODE, by, bz, (int)sizeof(T));
-  const cudaError_t err = window_opt_in<T, MODE>(bytes);
+  const cudaError_t err = window_opt_in<T, MODE, K>(bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((nz + bz - 1) / bz), (unsigned)((ny + by - 1) / by), (unsigned)((nx + run - 1) / run));
-  plane_window_kernel<T, MODE><<<grid, dim3(bz, by), bytes, stream>>>(x, c, u, out, mom, partials, dims(nx, ny, nz), run);
+  plane_window_kernel<T, MODE, K><<<grid, dim3(bz, by), bytes, stream>>>(x, c, u, out, mom, partials, dims(nx, ny, nz), run);
   return (int)cudaGetLastError();
 }
 
@@ -432,21 +443,22 @@ int finish(const T* c, const T* out_grid, const T* u, T* out, int nx, int ny, in
 
 extern "C" {
 
-int ps_grid_mom_pap_f32(const float* x, const float* c, float* out, float* mom, float* partials, int nx, int ny, int nz, int tile,
-                        int by, int bz, cudaStream_t s) {
-  return ps::plane_window<float, ps::WINDOW_GRID_MOM>(x, c, nullptr, out, mom, partials, nx, ny, nz, tile, by, bz, s);
-}
-int ps_grid_mom_pap_f64(const double* x, const double* c, double* out, double* mom, double* partials, int nx, int ny, int nz,
-                        int tile, int by, int bz, cudaStream_t s) {
-  return ps::plane_window<double, ps::WINDOW_GRID_MOM>(x, c, nullptr, out, mom, partials, nx, ny, nz, tile, by, bz, s);
-}
-int ps_moments_f32(const float* x, const float* c, float* mom, int nx, int ny, int nz, int tile, int by, int bz, cudaStream_t s) {
-  return ps::plane_window<float, ps::WINDOW_MOM>(x, c, nullptr, nullptr, mom, nullptr, nx, ny, nz, tile, by, bz, s);
-}
-int ps_moments_f64(const double* x, const double* c, double* mom, int nx, int ny, int nz, int tile, int by, int bz,
-                   cudaStream_t s) {
-  return ps::plane_window<double, ps::WINDOW_MOM>(x, c, nullptr, nullptr, mom, nullptr, nx, ny, nz, tile, by, bz, s);
-}
+// the moment modes for each basis: ps_grid_mom_pap_k10_* and ps_moments_k10_*
+// (quadratic), ps_grid_mom_pap_k4_* and ps_moments_k4_* (affine)
+#define PS_MOMENT_MODES(K, TAG, T) \
+  int ps_grid_mom_pap_k##K##_##TAG(const T* x, const T* c, T* out, T* mom, T* partials, int nx, int ny, int nz, int tile, \
+                                   int by, int bz, cudaStream_t s) { \
+    return ps::plane_window<T, ps::WINDOW_GRID_MOM, K>(x, c, nullptr, out, mom, partials, nx, ny, nz, tile, by, bz, s); \
+  } \
+  int ps_moments_k##K##_##TAG(const T* x, const T* c, T* mom, int nx, int ny, int nz, int tile, int by, int bz, \
+                              cudaStream_t s) { \
+    return ps::plane_window<T, ps::WINDOW_MOM, K>(x, c, nullptr, nullptr, mom, nullptr, nx, ny, nz, tile, by, bz, s); \
+  }
+PS_MOMENT_MODES(10, f32, float)
+PS_MOMENT_MODES(10, f64, double)
+PS_MOMENT_MODES(4, f32, float)
+PS_MOMENT_MODES(4, f64, double)
+#undef PS_MOMENT_MODES
 int ps_finish_f32(const float* c, const float* out_grid, const float* u, float* out, int nx, int ny, int nz, cudaStream_t s) {
   return ps::finish(c, out_grid, u, out, nx, ny, nz, s);
 }

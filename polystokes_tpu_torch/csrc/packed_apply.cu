@@ -14,10 +14,11 @@
 //   VEC consecutive z slots in one cube (16-byte loads of chi and stores
 //   of u, chosen by packed_apply.py expand_plan, one slot where nz, the tile
 //   or the alignment forbid), for all three axes.  Per axis it loads the
-//   cube's 10 coefficients once and folds them into A + B z + C z^2 along
+//   cube's K coefficients once and folds them into A + B z + C z^2 along
 //   the row (stencil.cuh row_poly, which expand_at and so
 //   exp_finish_update_kernel evaluate at one slot); a run with no reduced
-//   face loads no coefficient.
+//   face loads no coefficient.  Templated on K: 10 for the quadratic basis,
+//   4 for the affine one (A + B z, 12 coefficients a cube instead of 30).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -26,7 +27,7 @@
 
 namespace ps {
 
-template <typename T, int VEC>
+template <typename T, int VEC, int K>
 __global__ void __launch_bounds__(kThreads)
 expand_kernel(const T* __restrict__ v, const T* __restrict__ red, T* __restrict__ u, Dims d, int tile) {
   // thread: VEC consecutive z slots k0.. of row (i, j), all in one cube
@@ -52,8 +53,8 @@ expand_kernel(const T* __restrict__ v, const T* __restrict__ red, T* __restrict_
       for (int s = 0; s < VEC; ++s) res.v[s] = T(0);
     } else {
       // p cube-local, +0.5 on the face axis
-      const RowPoly<T> poly = row_poly(vc + a * K * cs2, cs2, T(i - c0 * tile) + (a == 0 ? T(0.5) : T(0)),
-                                       T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0)));
+      const RowPoly<T, K> poly = row_poly<T, K>(vc + a * K * cs2, cs2, T(i - c0 * tile) + (a == 0 ? T(0.5) : T(0)),
+                                                T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0)));
       const T pz0 = T(k0 - c2 * tile) + (a == 2 ? T(0.5) : T(0));
 #pragma unroll
       for (int s = 0; s < VEC; ++s) res.v[s] = chi.v[s] == T(0) ? T(0) : poly.at(pz0 + T(s)) * chi.v[s];
@@ -66,7 +67,7 @@ expand_kernel(const T* __restrict__ v, const T* __restrict__ red, T* __restrict_
 template <typename T>
 constexpr int kVec = 16 / (int)sizeof(T);
 
-template <typename T>
+template <typename T, int K>
 int expand(const T* v, const T* red, T* u, int nx, int ny, int nz, int tile, int vec, int bx, int by, cudaStream_t stream) {
   if ((vec != 1 && vec != kVec<T>) || nz % vec || tile % vec || bx < 1 || by < 1 || bx * by > kThreads ||
       (vec > 1 && (reinterpret_cast<uintptr_t>(red) | reinterpret_cast<uintptr_t>(u)) % 16))
@@ -75,9 +76,9 @@ int expand(const T* v, const T* red, T* u, int nx, int ny, int nz, int tile, int
   const dim3 grid((unsigned)((nzv + bx - 1) / bx), (unsigned)((ny + by - 1) / by), (unsigned)nx);
   const Dims d = dims(nx, ny, nz);
   if (vec == 1)
-    expand_kernel<T, 1><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
+    expand_kernel<T, 1, K><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
   else
-    expand_kernel<T, kVec<T>><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
+    expand_kernel<T, kVec<T>, K><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
   return (int)cudaGetLastError();
 }
 
@@ -85,13 +86,16 @@ int expand(const T* v, const T* red, T* u, int nx, int ny, int nz, int tile, int
 
 extern "C" {
 
-int ps_expand_f32(const float* v, const float* red, float* u, int nx, int ny, int nz, int tile, int vec, int bx, int by,
-                  cudaStream_t s) {
-  return ps::expand(v, red, u, nx, ny, nz, tile, vec, bx, by, s);
-}
-int ps_expand_f64(const double* v, const double* red, double* u, int nx, int ny, int nz, int tile, int vec, int bx, int by,
-                  cudaStream_t s) {
-  return ps::expand(v, red, u, nx, ny, nz, tile, vec, bx, by, s);
-}
+// ps_expand_k10_* (the quadratic basis) and ps_expand_k4_* (the affine one)
+#define PS_EXPAND(K, TAG, T) \
+  int ps_expand_k##K##_##TAG(const T* v, const T* red, T* u, int nx, int ny, int nz, int tile, int vec, int bx, int by, \
+                             cudaStream_t s) { \
+    return ps::expand<T, K>(v, red, u, nx, ny, nz, tile, vec, bx, by, s); \
+  }
+PS_EXPAND(10, f32, float)
+PS_EXPAND(10, f64, double)
+PS_EXPAND(4, f32, float)
+PS_EXPAND(4, f64, double)
+#undef PS_EXPAND
 
 }  // extern "C"

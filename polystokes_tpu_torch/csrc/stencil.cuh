@@ -2,7 +2,7 @@
 // fused_apply.cu, transpose_apply.cu, update_apply.cu): zero-filled loads in
 // the packed slot layout, the forward stencil s_a, the face values w_a the
 // transpose spreads, the transpose itself, the region polynomial over the
-// quadratic monomials (along a row and at a slot), the pointwise
+// K monomials of the basis (along a row and at a slot), the pointwise
 // preconditioners and thread-block sums.
 //
 // Packed layout (see polystokes_tpu_torch/packed_apply.py): every field is
@@ -35,8 +35,14 @@ enum : int {
   C_RED = 14,
 };
 
-// quadratic monomials [1, x, y, z, x^2, xy, xz, y^2, yz, z^2]
-constexpr int K = 10;
+// The monomials of a basis, K of them per velocity component: the
+// quadratic [1, x, y, z, x^2, xy, xz, y^2, yz, z^2] (K = 10) or the affine
+// [1, x, y, z] (K = 4), its first four (polystokes_tpu/basis.py
+// monomials_xyz).  The per-cube moments and coefficients are [cs0, cs1, 3K,
+// cs2], monomial m of axis a at row aK + m.  The kernels that read the
+// basis take K as a template argument and exist for both.
+constexpr int K_QUADRATIC = 10;
+constexpr int K_AFFINE = 4;
 
 struct Dims {
   int nx, ny, nz;
@@ -165,21 +171,29 @@ __device__ __forceinline__ void sub_mass_terms(const T* __restrict__ x, const T*
 
 // The region polynomial sum_m v_m m_m(px, py, pz) of one cube and axis
 // along a row of fixed (px, py), cube-local face positions: A + B pz + C
-// pz^2, evaluated by Horner.  vc points at v[c0, c1, aK, c2] of the [cs0,
-// cs1, 3K, cs2] coefficients, whose monomials lie cs2 apart.
-template <typename T>
+// pz^2, evaluated by Horner; the affine basis has no z^2 term, so A + B pz.
+// vc points at v[c0, c1, aK, c2] of the [cs0, cs1, 3K, cs2] coefficients,
+// whose monomials lie cs2 apart.
+template <typename T, int K>
 struct RowPoly {
-  T a, b, c;
-  __device__ __forceinline__ T at(T pz) const { return a + pz * (b + pz * c); }
+  T a, b, c;  // c: the z^2 coefficient, 0 and unread at K = 4
+  __device__ __forceinline__ T at(T pz) const {
+    if constexpr (K == K_QUADRATIC) return a + pz * (b + pz * c);
+    else return a + pz * b;
+  }
 };
 
-template <typename T>
-__device__ __forceinline__ RowPoly<T> row_poly(const T* __restrict__ vc, int cs2, T px, T py) {
+template <typename T, int K>
+__device__ __forceinline__ RowPoly<T, K> row_poly(const T* __restrict__ vc, int cs2, T px, T py) {
+  static_assert(K == K_QUADRATIC || K == K_AFFINE, "K is 10 (quadratic) or 4 (affine)");
   T m[K];
 #pragma unroll
   for (int n = 0; n < K; ++n) m[n] = __ldg(vc + (long long)n * cs2);
-  return {m[0] + m[1] * px + m[2] * py + m[4] * (px * px) + m[5] * (px * py) + m[7] * (py * py),
-          m[3] + m[6] * px + m[8] * py, m[9]};
+  if constexpr (K == K_QUADRATIC)
+    return {m[0] + m[1] * px + m[2] * py + m[4] * (px * px) + m[5] * (px * py) + m[7] * (py * py),
+            m[3] + m[6] * px + m[8] * py, m[9]};
+  else
+    return {m[0] + m[1] * px + m[2] * py, m[3], T(0)};
 }
 
 // The region polynomial on face a at slot (i, j, k): u_a = chi_a sum_m
@@ -187,7 +201,7 @@ __device__ __forceinline__ RowPoly<T> row_poly(const T* __restrict__ vc, int cs2
 // polystokes_tpu/pallas_apply.py), p cube-local with +0.5 on the face axis.
 // v is [cs0, cs1, 3K, cs2]; red the [3, nx, ny, nz] reduced-face masks.  0
 // off the reduced faces and outside the grid, where v is not read.
-template <typename T>
+template <typename T, int K>
 __device__ __forceinline__ T expand_at(const T* __restrict__ v, const T* __restrict__ red, int a, int i, int j, int k, int tile, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
   const T chi = __ldg(red + a * d.plane + d.at(i, j, k));
@@ -195,8 +209,8 @@ __device__ __forceinline__ T expand_at(const T* __restrict__ v, const T* __restr
   const int cs1 = d.ny / tile, cs2 = d.nz / tile;
   const int c0 = i / tile, c1 = j / tile, c2 = k / tile;
   const T* vc = v + ((long long)(c0 * cs1 + c1) * (3 * K) + a * K) * cs2 + c2;
-  const RowPoly<T> poly = row_poly(vc, cs2, T(i - c0 * tile) + (a == 0 ? T(0.5) : T(0)),
-                                   T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0)));
+  const RowPoly<T, K> poly = row_poly<T, K>(vc, cs2, T(i - c0 * tile) + (a == 0 ? T(0.5) : T(0)),
+                                            T(j - c1 * tile) + (a == 1 ? T(0.5) : T(0)));
   return poly.at(T(k - c2 * tile) + (a == 2 ? T(0.5) : T(0))) * chi;
 }
 
@@ -204,10 +218,10 @@ __device__ __forceinline__ T expand_at(const T* __restrict__ v, const T* __restr
 // from v in place: face_w_u(c, u, -1, ...) without the stored u.  Each
 // neighbour evaluates the polynomial of its own cube, so a stencil that
 // crosses a cube face needs no window decomposition.
-template <typename T>
+template <typename T, int K>
 __device__ __forceinline__ T face_w_v(const T* __restrict__ c, const T* __restrict__ v, int a, int i, int j, int k, int tile, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
-  const T u = expand_at(v, c + C_RED * d.plane, a, i, j, k, tile, d);
+  const T u = expand_at<T, K>(v, c + C_RED * d.plane, a, i, j, k, tile, d);
   return __ldg(c + (C_FFW + a) * d.plane + d.at(i, j, k)) * (-u);
 }
 

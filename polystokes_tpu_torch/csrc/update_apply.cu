@@ -39,7 +39,8 @@
 //   needs no such decomposition.  u never reaches device memory.  Bound:
 //   c[:7], the masks c[14:17], out_grid, x, r, p and the factors read, 21
 //   channels written: 72 (arrow) channels and v, 0.180 ms.  Design: one
-//   thread per slot; v stays in L1/L2.
+//   thread per slot; v stays in L1/L2.  Templated on K, the basis's
+//   monomials (stencil.cuh): 10 quadratic, 4 affine (row_poly's A + B z).
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -126,7 +127,7 @@ finish_update_kernel(const T* __restrict__ alpha, const T* __restrict__ c, const
   store_partials(acc, partials);
 }
 
-template <typename T, int KIND>
+template <typename T, int KIND, int K>
 __global__ void __launch_bounds__(kThreads)
 exp_finish_update_kernel(const T* __restrict__ alpha, const T* __restrict__ c, const T* __restrict__ v, const T* __restrict__ og,
                          const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ p, const T* __restrict__ f,
@@ -135,7 +136,7 @@ exp_finish_update_kernel(const T* __restrict__ alpha, const T* __restrict__ c, c
   T acc[3] = {T(0), T(0), T(0)};
   if (q < d.plane) {
     const int k = (int)(q % d.nz), j = (int)((q / d.nz) % d.ny), i = (int)(q / ((long long)d.nz * d.ny));
-    auto wf = [&](int a, int ii, int jj, int kk) { return face_w_v(c, v, a, ii, jj, kk, tile, d); };
+    auto wf = [&](int a, int ii, int jj, int kk) { return face_w_v<T, K>(c, v, a, ii, jj, kk, tile, d); };
     T ap[7];
     finished_ap(c, og, i, j, k, d, wf, ap);
     update_slot<T, KIND>(__ldg(alpha), x, r, p, ap, f, xo, ro, zo, q, d, acc);
@@ -175,13 +176,13 @@ int finish_update(const T* alpha, const T* c, const T* og, const T* u, const T* 
   });
 }
 
-template <typename T>
+template <typename T, int K>
 int exp_finish_update(const T* alpha, const T* c, const T* v, const T* og, const T* x, const T* r, const T* p, const T* f, T* xo,
                       T* ro, T* zo, T* partials, int nx, int ny, int nz, int tile, int kind, cudaStream_t stream) {
   const Dims d = dims(nx, ny, nz);
   return launch_for_kind(kind, [&](auto kd) {
-    exp_finish_update_kernel<T, decltype(kd)::value><<<blocks_for(d.plane), kThreads, 0, stream>>>(alpha, c, v, og, x, r, p, f, xo, ro,
-                                                                                                   zo, partials, d, tile);
+    exp_finish_update_kernel<T, decltype(kd)::value, K><<<blocks_for(d.plane), kThreads, 0, stream>>>(alpha, c, v, og, x, r, p, f,
+                                                                                                      xo, ro, zo, partials, d, tile);
   });
 }
 
@@ -207,15 +208,17 @@ int ps_finish_update_f64(const double* alpha, const double* c, const double* og,
                          int nz, int kind, cudaStream_t s) {
   return ps::finish_update(alpha, c, og, u, x, r, p, f, xo, ro, zo, partials, nx, ny, nz, kind, s);
 }
-int ps_exp_finish_update_f32(const float* alpha, const float* c, const float* v, const float* og, const float* x, const float* r,
-                             const float* p, const float* f, float* xo, float* ro, float* zo, float* partials, int nx, int ny,
-                             int nz, int tile, int kind, cudaStream_t s) {
-  return ps::exp_finish_update(alpha, c, v, og, x, r, p, f, xo, ro, zo, partials, nx, ny, nz, tile, kind, s);
-}
-int ps_exp_finish_update_f64(const double* alpha, const double* c, const double* v, const double* og, const double* x,
-                             const double* r, const double* p, const double* f, double* xo, double* ro, double* zo, double* partials,
-                             int nx, int ny, int nz, int tile, int kind, cudaStream_t s) {
-  return ps::exp_finish_update(alpha, c, v, og, x, r, p, f, xo, ro, zo, partials, nx, ny, nz, tile, kind, s);
-}
+// ps_exp_finish_update_k10_* (the quadratic basis) and _k4_* (the affine one)
+#define PS_EXP_FINISH_UPDATE(K, TAG, T) \
+  int ps_exp_finish_update_k##K##_##TAG(const T* alpha, const T* c, const T* v, const T* og, const T* x, const T* r, const T* p, \
+                                        const T* f, T* xo, T* ro, T* zo, T* partials, int nx, int ny, int nz, int tile, int kind, \
+                                        cudaStream_t s) { \
+    return ps::exp_finish_update<T, K>(alpha, c, v, og, x, r, p, f, xo, ro, zo, partials, nx, ny, nz, tile, kind, s); \
+  }
+PS_EXP_FINISH_UPDATE(10, f32, float)
+PS_EXP_FINISH_UPDATE(10, f64, double)
+PS_EXP_FINISH_UPDATE(4, f32, float)
+PS_EXP_FINISH_UPDATE(4, f64, double)
+#undef PS_EXP_FINISH_UPDATE
 
 }  // extern "C"

@@ -47,8 +47,15 @@ into ``build/polystokes_tpu_torch/`` on first use and loaded with ctypes:
   preconditioner of its ``kind`` ("none", "diag" or "arrow") and returns
   the three loop dots as 0-dim tensors (``csrc/update_apply.cu``).
 
-``LAUNCHES`` counts the kernel launches of each wrapper; under a CUDA
-graph, ``captured_launches`` and ``add_launches`` count each replay's.
+The four kernels that read the basis (``moments_packed``,
+``expand_packed``, ``grid_mom_pap_packed``, ``exp_finish_update_packed``)
+take ``basis`` as the JAX wrappers do and work on [cs0, cs1, 3K, cs2]
+per-cube arrays, K = 10 monomials for the quadratic basis and 4 for the
+affine one; each has a CUDA form for each K.
+
+``LAUNCHES`` counts the kernel launches of each wrapper, either basis
+under one name; under a CUDA graph, ``captured_launches`` and
+``add_launches`` count each replay's.
 """
 from __future__ import annotations
 
@@ -63,8 +70,9 @@ from pathlib import Path
 
 import torch
 
-from .basis import monomials_xyz
+from .basis import monomials_xyz, n_monomials
 from .classify import REDUCED, is_active
+from .config import BasisOrder
 from .grid import EDGE_OFFSET_AXES, pad_axis, shift, unit
 from .operators import PTau
 
@@ -77,7 +85,6 @@ C_UINV2E = 11  # +e
 C_RED = 14  # +a
 N_COEFF = 17
 N_COEFF_UNIFORM = 14  # without the reduced-face masks
-K = 10  # quadratic monomials per axis
 PAP_BLOCK = 256  # slots per dot partial of the update kernels (their thread block)
 KERNEL_THREADS = 256  # most threads in a block of any kernel (csrc/stencil.cuh kThreads)
 
@@ -233,21 +240,22 @@ def _grid_w(c, s):
     return [-c[C_DTMCINV + a] * s[a] for a in range(3)]
 
 
-def _local_monomials(T: int, a: int, like):
-    """[K, T, T, T] monomials at cube-local face positions (+0.5 on axis a)."""
+def _local_monomials(T: int, a: int, like, basis: BasisOrder):
+    """[K, T, T, T] monomials of the basis at cube-local face positions
+    (+0.5 on axis a)."""
     loc = torch.arange(T, dtype=like.dtype, device=like.device)
     pos = [loc[:, None, None], loc[None, :, None], loc[None, None, :]]
     pos[a] = pos[a] + 0.5
-    return torch.stack([m.expand(T, T, T) for m in monomials_xyz(*pos)], dim=0)
+    return torch.stack([m.expand(T, T, T) for m in monomials_xyz(*pos, basis)], dim=0)
 
 
-def _moments_from_s(s, coeffs, T: int):
+def _moments_from_s(s, coeffs, T: int, basis: BasisOrder):
     """[cs0, cs1, 3K, cs2] cube-origin moments of the reduced-masked s."""
     nx, ny, nz = s[0].shape
     rows = []
     for a in range(3):
         sm = (s[a] * coeffs[C_RED + a]).reshape(nx // T, T, ny // T, T, nz // T, T)
-        rows.append(torch.einsum("aibjck,mijk->abmc", sm, _local_monomials(T, a, s[a])))
+        rows.append(torch.einsum("aibjck,mijk->abmc", sm, _local_monomials(T, a, s[a], basis)))
     return torch.cat(rows, dim=2)
 
 
@@ -261,19 +269,20 @@ def _box_sums(field, box):
     return f.reshape(nx // bx, bx, ny // by, by, nz // bz, bz).sum(dim=(1, 3, 5)).reshape(-1)
 
 
-def moments_packed_plain(xp, coeffs, T: int):
+def moments_packed_plain(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
     """Per-cube monomial moments about the cube origin of the reduced-
-    masked s: [cs0, cs1, 3K, cs2]."""
-    return _moments_from_s(_forward_s(xp, coeffs), coeffs, T)
+    masked s: [cs0, cs1, 3K, cs2], K the basis's monomials."""
+    return _moments_from_s(_forward_s(xp, coeffs), coeffs, T, basis)
 
 
-def expand_packed_plain(v_origin, red_packed, T: int):
+def expand_packed_plain(v_origin, red_packed, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
     """u_a = chi_a sum_k v[cube, aK+k] m_k(p - origin): [3, nx, ny, nz]."""
     cs0, cs1, _, cs2 = v_origin.shape
+    K = n_monomials(basis)
     out = []
     for a in range(3):
         va = v_origin[:, :, a * K : (a + 1) * K, :]
-        u = torch.einsum("abmc,mijk->aibjck", va, _local_monomials(T, a, v_origin))
+        u = torch.einsum("abmc,mijk->aibjck", va, _local_monomials(T, a, v_origin, basis))
         out.append(u.reshape(cs0 * T, cs1 * T, cs2 * T) * red_packed[a])
     return torch.stack(out, dim=0)
 
@@ -285,13 +294,13 @@ def apply_reduced_packed_plain(xp, coeffs, up):
     return _transpose_out(xp, coeffs, w)
 
 
-def grid_mom_pap_packed_plain(xp, coeffs, T: int):
+def grid_mom_pap_packed_plain(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
     """(out_grid, mom, partials): the grid branch of A x with its mass
     terms, the moments of ``moments_packed_plain`` and the per-cube
     partials of <x, out_grid>."""
     s = _forward_s(xp, coeffs)
     out = _transpose_out(xp, coeffs, _grid_w(coeffs, s))
-    return out, _moments_from_s(s, coeffs, T), _box_sums((xp * out).sum(dim=0), (T, T, T))
+    return out, _moments_from_s(s, coeffs, T, basis), _box_sums((xp * out).sum(dim=0), (T, T, T))
 
 
 def finish_packed_plain(coeffs, out_grid, up):
@@ -363,10 +372,11 @@ def finish_update_packed_plain(xp, rp, pp, alpha, coeffs, out_grid, up, factors=
     return cg_update_packed_plain(xp, rp, pp, finish_packed_plain(coeffs, out_grid, up), alpha, factors, kind)
 
 
-def exp_finish_update_packed_plain(xp, rp, pp, alpha, coeffs, out_grid, v_origin, T: int, factors=None, kind="none"):
+def exp_finish_update_packed_plain(xp, rp, pp, alpha, coeffs, out_grid, v_origin, T: int, factors=None, kind="none",
+                                   basis: BasisOrder = BasisOrder.QUADRATIC):
     """finish_update with u expanded from v on the reduced-face masks of
     the coefficient stack."""
-    up = expand_packed_plain(v_origin, coeffs[C_RED : C_RED + 3], T)
+    up = expand_packed_plain(v_origin, coeffs[C_RED : C_RED + 3], T, basis)
     return finish_update_packed_plain(xp, rp, pp, alpha, coeffs, out_grid, up, factors, kind)
 
 
@@ -382,7 +392,10 @@ _LIB = None
 # csrc/fused_apply.cu plane_window_kernel
 _WINDOW_KERNELS = {"grid_mom_pap": 0, "apply_uniform": 1, "apply_uniform_pap": 2, "apply_reduced": 3, "moments": 4}
 # (entry point, pointer arguments, int arguments) of each kernel; every
-# entry point also takes the stream and exists for f32 and f64
+# entry point also takes the stream and exists for f32 and f64, and those of
+# the kernels that read the basis for K = 10 and K = 4 monomials (the
+# quadratic and the affine basis): ps_<name>_k<K>_<f32|f64>
+_BASIS_KERNELS = ("moments", "expand", "grid_mom_pap", "exp_finish_update")
 _SIGNATURES = (("moments", 3, 6), ("expand", 3, 7), ("apply_reduced", 4, 6), ("grid_mom_pap", 5, 6),
                ("finish", 4, 3), ("apply_uniform", 3, 6), ("apply_uniform_pap", 4, 6), ("transpose_u", 3, 3),
                ("forward_s", 3, 3), ("combine", 5, 3), ("cg_update", 10, 4), ("finish_update", 12, 4),
@@ -446,9 +459,10 @@ def _library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for dt in ("f32", "f64"):
             for name, n_ptr, n_int in _SIGNATURES:
-                fn = getattr(lib, f"ps_{name}_{dt}")
-                fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
-                fn.restype = i32
+                for basis in (BasisOrder.QUADRATIC, BasisOrder.AFFINE) if name in _BASIS_KERNELS else (None,):
+                    fn = getattr(lib, _entry(name, dt, basis))
+                    fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
+                    fn.restype = i32
             # window bytes at (by, bz, MODE); blocks per SM at (by, bz)
             for query, n_int in [("window_bytes", 3)] + [(f"{k}_blocks_per_sm", 2) for k in _WINDOW_KERNELS]:
                 fn = getattr(lib, f"ps_{query}_{dt}")
@@ -457,10 +471,19 @@ def _library():
     return _LIB
 
 
-def _launch(name: str, tensors, ints, dtype):
-    """Launch one kernel; a tensor given as None is a null pointer (the
-    factors of the update kernels' kind "none")."""
-    fn = getattr(_library(), f"ps_{name}_{'f32' if dtype == torch.float32 else 'f64'}")
+def _entry(name: str, dt: str, basis=None) -> str:
+    """The C entry point of a kernel in f32 or f64; a kernel that reads the
+    basis has one for each K, picked by ``basis``."""
+    if (basis is None) != (name not in _BASIS_KERNELS):
+        raise ValueError(f"{name}: a basis is {'required' if basis is None else 'not taken'}")
+    return f"ps_{name}_{dt}" if basis is None else f"ps_{name}_k{n_monomials(basis)}_{dt}"
+
+
+def _launch(name: str, tensors, ints, dtype, basis=None):
+    """Launch one kernel, the entry point of ``basis`` where the kernel
+    reads it; a tensor given as None is a null pointer (the factors of the
+    update kernels' kind "none")."""
+    fn = getattr(_library(), _entry(name, "f32" if dtype == torch.float32 else "f64", basis))
     device = tensors[0].device
     with torch.cuda.device(device):  # the runtime launches on the current device
         err = fn(*[None if t is None else t.data_ptr() for t in tensors], *ints,
@@ -542,9 +565,9 @@ def uniform_plan(res):
 
 def window_occupancy(kernel: str, dtype, by: int, bz: int):
     """(window bytes, blocks per SM) of a plane-window kernel (one of
-    _WINDOW_KERNELS) at the column (by, bz): its dynamic shared memory and
-    the blocks the CUDA occupancy calculator lets reside on one SM
-    (registers, shared memory, threads)."""
+    _WINDOW_KERNELS; the moment modes in their quadratic form) at the column
+    (by, bz): its dynamic shared memory and the blocks the CUDA occupancy
+    calculator lets reside on one SM (registers, shared memory, threads)."""
     dt = "f32" if dtype == torch.float32 else "f64"
     n = getattr(_library(), f"ps_{kernel}_blocks_per_sm_{dt}")(by, bz)
     if n < 0:
@@ -565,17 +588,18 @@ def _cube_parts(T: int, by: int, bz: int):
     return (parts,) if parts > 1 else ()
 
 
-def moments_packed(xp, coeffs, T: int):
-    """[cs0, cs1, 3K, cs2] per-cube moments of the reduced-masked s."""
+def moments_packed(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
+    """[cs0, cs1, 3K, cs2] per-cube moments of the reduced-masked s over
+    the K monomials of ``basis``."""
     res = tuple(xp.shape[1:])
     _cube_dims(res, T)
     dev = _check("moments_packed", (xp, coeffs), ((7,) + res, (N_COEFF,) + res))
     if dev == "cpu":
-        return moments_packed_plain(xp, coeffs, T)
-    return _moments_cuda(xp, coeffs, T, *grid_mom_plan(T))
+        return moments_packed_plain(xp, coeffs, T, basis)
+    return _moments_cuda(xp, coeffs, T, *grid_mom_plan(T), basis=basis)
 
 
-def _moments_cuda(xp, coeffs, T: int, by: int, bz: int):
+def _moments_cuda(xp, coeffs, T: int, by: int, bz: int, basis: BasisOrder = BasisOrder.QUADRATIC):
     """moments_packed's kernel at the column geometry (by, bz), on
     grid_mom_pap's columns: each of a cube's (T / by) * (T / bz) blocks
     writes its own moments, summed here over dim 0 as _grid_mom_pap_cuda
@@ -583,21 +607,23 @@ def _moments_cuda(xp, coeffs, T: int, by: int, bz: int):
     res = tuple(xp.shape[1:])
     cs = _cube_dims(res, T)
     lead = _cube_parts(T, by, bz)
-    mom = torch.empty(lead + (cs[0], cs[1], 3 * K, cs[2]), dtype=xp.dtype, device=xp.device)
-    _launch("moments", (xp, coeffs, mom), (*res, T, by, bz), xp.dtype)
+    mom = torch.empty(lead + (cs[0], cs[1], 3 * n_monomials(basis), cs[2]), dtype=xp.dtype, device=xp.device)
+    _launch("moments", (xp, coeffs, mom), (*res, T, by, bz), xp.dtype, basis)
     return mom.sum(dim=0) if lead else mom
 
 
-def expand_packed(v_origin, red_packed, T: int):
-    """[3, nx, ny, nz] region polynomials on the reduced faces."""
+def expand_packed(v_origin, red_packed, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
+    """[3, nx, ny, nz] region polynomials on the reduced faces from the
+    per-cube coefficients v [cs0, cs1, 3K, cs2] over the K monomials of
+    ``basis``."""
     res = tuple(red_packed.shape[1:])
     cs = _cube_dims(res, T)
-    dev = _check("expand_packed", (v_origin, red_packed), ((cs[0], cs[1], 3 * K, cs[2]), (3,) + res))
+    dev = _check("expand_packed", (v_origin, red_packed), ((cs[0], cs[1], 3 * n_monomials(basis), cs[2]), (3,) + res))
     if dev == "cpu":
-        return expand_packed_plain(v_origin, red_packed, T)
+        return expand_packed_plain(v_origin, red_packed, T, basis)
     u = torch.empty((3,) + res, dtype=v_origin.dtype, device=v_origin.device)
     plan = expand_plan(res, T, u.element_size(), aligned=red_packed.data_ptr() % 16 == 0 and u.data_ptr() % 16 == 0)
-    _launch("expand", (v_origin, red_packed, u), (*res, T, *plan), v_origin.dtype)
+    _launch("expand", (v_origin, red_packed, u), (*res, T, *plan), v_origin.dtype, basis)
     return u
 
 
@@ -618,19 +644,20 @@ def _apply_reduced_cuda(xp, coeffs, up, by: int, bz: int, run: int):
     return out
 
 
-def grid_mom_pap_packed(xp, coeffs, T: int):
+def grid_mom_pap_packed(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
     """(out_grid [7, nx, ny, nz], mom [cs0, cs1, 3K, cs2], partials
     [ncubes]): the grid branch of A x with its mass terms, the per-cube
-    moments of the reduced-masked s, and per-cube partials of <x, out_grid>."""
+    moments of the reduced-masked s over the K monomials of ``basis``, and
+    per-cube partials of <x, out_grid>."""
     res = tuple(xp.shape[1:])
     _cube_dims(res, T)
     dev = _check("grid_mom_pap_packed", (xp, coeffs), ((7,) + res, (N_COEFF,) + res))
     if dev == "cpu":
-        return grid_mom_pap_packed_plain(xp, coeffs, T)
-    return _grid_mom_pap_cuda(xp, coeffs, T, *grid_mom_plan(T))
+        return grid_mom_pap_packed_plain(xp, coeffs, T, basis)
+    return _grid_mom_pap_cuda(xp, coeffs, T, *grid_mom_plan(T), basis=basis)
 
 
-def _grid_mom_pap_cuda(xp, coeffs, T: int, by: int, bz: int):
+def _grid_mom_pap_cuda(xp, coeffs, T: int, by: int, bz: int, basis: BasisOrder = BasisOrder.QUADRATIC):
     """grid_mom_pap_packed's kernel at the column geometry (by, bz): each of
     a cube's (T / by) * (T / bz) blocks writes its own moments and partial,
     summed here over dim 0 (a fixed order) when there are several."""
@@ -638,9 +665,9 @@ def _grid_mom_pap_cuda(xp, coeffs, T: int, by: int, bz: int):
     cs = _cube_dims(res, T)
     lead = _cube_parts(T, by, bz)
     out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
-    mom = torch.empty(lead + (cs[0], cs[1], 3 * K, cs[2]), dtype=xp.dtype, device=xp.device)
+    mom = torch.empty(lead + (cs[0], cs[1], 3 * n_monomials(basis), cs[2]), dtype=xp.dtype, device=xp.device)
     partials = torch.empty(lead + (cs[0] * cs[1] * cs[2],), dtype=xp.dtype, device=xp.device)
-    _launch("grid_mom_pap", (xp, coeffs, out, mom, partials), (*res, T, by, bz), xp.dtype)
+    _launch("grid_mom_pap", (xp, coeffs, out, mom, partials), (*res, T, by, bz), xp.dtype, basis)
     if not lead:
         return out, mom, partials
     return out, mom.sum(dim=0), partials.sum(dim=0)
@@ -771,14 +798,15 @@ def _into(out, result):
     return (out[0], out[1]) + tuple(result[2:])
 
 
-def _run_update(name, tensors, ints, xp, kind, out=None):
+def _run_update(name, tensors, ints, xp, kind, out=None, basis=None):
     """Launch an update kernel on (alpha, inputs..., factors) and return the
     JAX 6-tuple, x' and r' in ``out`` when given; the [3, blocks] dot
     partials are summed in a fixed order."""
     xo, ro = (torch.empty_like(xp), torch.empty_like(xp)) if out is None else out
     zo = torch.empty_like(xp)
     partials = torch.empty((3, -(-xp[0].numel() // PAP_BLOCK)), dtype=xp.dtype, device=xp.device)
-    _launch(name, (*tensors, xo, ro, zo, partials), (*tuple(xp.shape[1:]), *ints, UPDATE_KINDS[kind]), xp.dtype)
+    _launch(name, (*tensors, xo, ro, zo, partials), (*tuple(xp.shape[1:]), *ints, UPDATE_KINDS[kind]), xp.dtype,
+            basis)
     sums = torch.sum(partials, dim=1)
     return xo, ro, zo, sums[0], sums[1], sums[2]
 
@@ -809,16 +837,17 @@ def finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, up, factors=None, 
 
 
 def exp_finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, v_origin, T: int, factors=None, kind="none",
-                             out=None):
+                             out=None, basis: BasisOrder = BasisOrder.QUADRATIC):
     """finish_update_packed with u expanded in the kernel from the per-cube
-    polynomial coefficients v [cs0, cs1, 3K, cs2] on the reduced-face masks
-    of the 17-channel stack: u never reaches device memory."""
+    polynomial coefficients v [cs0, cs1, 3K, cs2] over the K monomials of
+    ``basis`` on the reduced-face masks of the 17-channel stack: u never
+    reaches device memory."""
     res = tuple(xp.shape[1:])
     cs = _cube_dims(res, T)
     dev, a = _update_inputs("exp_finish_update_packed", xp, rp, pp, alpha, factors, kind, (coeffs, out_grid, v_origin),
-                            ((N_COEFF,) + res, (7,) + res, (cs[0], cs[1], 3 * K, cs[2])), out)
+                            ((N_COEFF,) + res, (7,) + res, (cs[0], cs[1], 3 * n_monomials(basis), cs[2])), out)
     if dev == "cpu":
         return _into(out, exp_finish_update_packed_plain(xp, rp, pp, a[0], coeffs, out_grid, v_origin, T, factors,
-                                                         kind))
+                                                         kind, basis))
     return _run_update("exp_finish_update", (a, coeffs, v_origin, out_grid, xp, rp, pp, factors), (T,), xp, kind,
-                       out)
+                       out, basis)

@@ -253,11 +253,11 @@ def make_apply_packed(grid: Grid, cls: Classification, asm: Assembled, params: S
         coeffs = pack_coeffs(asm)
         return lambda xp: apply_uniform_packed(xp, coeffs)
     coeffs = pack_coeffs(asm, cls)
-    T = params.tile_size
+    T, basis = params.tile_size, params.basis
     algebra, red_packed = _region_algebra_packed(grid, cls, asm, params, R)
 
     def apply_packed(xp):
-        up = expand_packed(algebra(moments_packed(xp, coeffs, T)), red_packed, T)
+        up = expand_packed(algebra(moments_packed(xp, coeffs, T, basis)), red_packed, T, basis)
         return apply_reduced_packed(xp, coeffs, up)
 
     return apply_packed
@@ -284,17 +284,17 @@ def make_apply_packed_pap(grid: Grid, cls: Classification, asm: Assembled, param
 
         return apply_dot_uniform
     coeffs = pack_coeffs(asm, cls)
-    T = params.tile_size
+    T, basis = params.tile_size, params.basis
     algebra, red_packed = _region_algebra_packed(grid, cls, asm, params, R)
     fuse_expand = _fuse_expand_ok(params)
 
     def apply_dot(xp):
-        out_grid, mom, pap_grid = grid_mom_pap_packed(xp, coeffs, T)
+        out_grid, mom, pap_grid = grid_mom_pap_packed(xp, coeffs, T, basis)
         v = algebra(mom)
         pap = torch.sum(pap_grid) - torch.sum(mom * v)
         if defer_finish and fuse_expand:
             return (out_grid, v), pap
-        up = expand_packed(v, red_packed, T)
+        up = expand_packed(v, red_packed, T, basis)
         if defer_finish:
             return (out_grid, up), pap
         return finish_packed(coeffs, out_grid, up), pap
@@ -338,7 +338,8 @@ def make_fused_update(params: SolverParams, factors, cls: Classification, asm: A
         if isinstance(ap, tuple):
             og, tail = ap
             if fuse_expand:
-                return exp_finish_update_packed(x, r, p, alpha, coeffs, og, tail, T, factors=fstack, kind=kind, out=out)
+                return exp_finish_update_packed(x, r, p, alpha, coeffs, og, tail, T, factors=fstack, kind=kind, out=out,
+                                                basis=params.basis)
             return finish_update_packed(x, r, p, alpha, coeffs, og, tail, factors=fstack, kind=kind, out=out)
         return cg_update_packed(x, r, p, ap, alpha, factors=fstack, kind=kind, out=out)
 
@@ -398,13 +399,13 @@ def make_preconditioner_packed(grid: Grid, cls: Classification, asm: Assembled, 
 
     if "sinv" not in factors:
         return solve_arrow
-    T = params.tile_size
+    T, basis = params.tile_size, params.basis
     coeffs = pack_coeffs(asm, cls)
     algebra, red_packed = _region_algebra_packed(grid, cls, asm, params, asm.binv.shape[0], matrix=factors["sinv"])
 
     def solve_region(rp):
         y = solve_arrow(rp)
-        up = expand_packed(algebra(moments_packed(y, coeffs, T)), red_packed, T)
+        up = expand_packed(algebra(moments_packed(y, coeffs, T, basis)), red_packed, T, basis)
         return y - solve_arrow(transpose_u_packed(coeffs, up))
 
     return solve_region

@@ -24,6 +24,8 @@ segment 2, a k = 26 state.
   velocities unchanged under ``keep_non_converged=False``.
 * ``step`` seeded with the converged solution converges at once.
 * The state file's keys and dtypes are JAX's.
+* The affine basis: ``solve_chunked`` bit-equal to ``step``, and a run
+  stopped after 2 segments and resumed bit-equal to the whole.
 """
 import shutil
 
@@ -39,6 +41,7 @@ from polystokes_tpu.solver import solve_chunked as jsolve_chunked
 
 from polystokes_tpu_torch import convert, solve_chunked, step
 from polystokes_tpu_torch import solver as tsolver
+from polystokes_tpu_torch.config import BasisOrder
 from polystokes_tpu_torch.packed_apply import unpack_ptau
 
 torch.set_num_threads(1)
@@ -200,3 +203,18 @@ def test_step_takes_initial_guess(tmp_path_factory):
     scale = max(float(v.abs().max()) for v in vel_d)
     for a in range(3):
         torch.testing.assert_close(vel[a], vel_d[a], rtol=0, atol=VEL_ATOL * scale)
+
+
+def test_affine_chunked_bit_equal_to_step_and_resume(tmp_path_factory, tmp_path):
+    grid, scene, params = _port_inputs(tmp_path_factory)
+    params = params.replace(basis=BasisOrder.AFFINE)
+    vel, _, stats = solve_chunked(grid, scene, params, segment_iters=SEGMENT)
+    vel_s, _, stats_s = step(grid, scene, params)
+    assert stats["converged"] and stats["n_reduced_dofs"] == 11 * stats["n_regions"] > 0
+    assert stats["iterations"] == stats_s["iterations"] and _bit_equal(vel, vel_s)
+    sp = str(tmp_path / "pcg_state.npz")
+    _, _, st = solve_chunked(grid, scene, params, segment_iters=SEGMENT, state_path=sp,
+                             callback=lambda s: s["iterations"] >= 2 * SEGMENT)
+    assert st["interrupted"] and st["iterations"] == 2 * SEGMENT
+    vel_r, _, st_r = solve_chunked(grid, scene, params, segment_iters=SEGMENT, state_path=sp, resume=True)
+    assert st_r["iterations"] == stats["iterations"] and _bit_equal(vel_r, vel)

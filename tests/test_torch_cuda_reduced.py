@@ -16,6 +16,7 @@ import torch
 from polystokes_tpu_torch import packed_apply as tpa
 from polystokes_tpu_torch import solver as tsolver
 from polystokes_tpu_torch.classify import effective_max_regions
+from polystokes_tpu_torch.config import BasisOrder
 
 # f32: sums of up to T^3 terms (the moments) in another order than the
 # twin, and the stencil's own round-off; fp64 likewise
@@ -175,6 +176,26 @@ def test_moments_bit_equal_to_grid_mom_pap(T, by, bz, dtype):
     _require_cuda()
     x, c, _ = _random_case((32, 32, 64), dtype, seed=T + by + bz)
     assert torch.equal(tpa._moments_cuda(x, c, T, by, bz), tpa._grid_mom_pap_cuda(x, c, T, by, bz)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res, T", [((32, 32, 32), 8), ((32, 32, 32), 16), ((32, 32, 32), 32), ((24, 24, 24), 6)],
+                         ids=["T8", "T16", "T32", "T6"])
+@DTYPES
+def test_affine_moments_match_twin_and_grid_mom_pap(res, T, dtype):
+    """The K = 4 form (the affine basis: 12 moments a cube) against its
+    twin at the planned column, bit-equal to grid_mom_pap's K = 4 moments,
+    and equal to the first four monomials of each axis of the K = 10 form."""
+    _require_cuda()
+    x, c, _ = _random_case(res, dtype, seed=40 + T)
+    before = tpa.LAUNCHES["moments"]
+    got = tpa.moments_packed(x, c, T, BasisOrder.AFFINE)
+    torch.cuda.synchronize()
+    assert tpa.LAUNCHES["moments"] == before + 1 and got.shape[2] == 12
+    _close("moments affine", got, tpa.moments_packed_plain(x, c, T, BasisOrder.AFFINE), dtype)
+    assert torch.equal(got, tpa.grid_mom_pap_packed(x, c, T, BasisOrder.AFFINE)[1])
+    quad = tpa.moments_packed(x, c, T)
+    assert torch.equal(got, torch.cat([quad[:, :, 10 * a: 10 * a + 4] for a in range(3)], dim=2))
 
 
 @pytest.mark.cuda

@@ -11,7 +11,9 @@ import torch
 
 from polystokes_tpu_torch import packed_apply as tpa
 from polystokes_tpu_torch import solver as tsolver
+from polystokes_tpu_torch.basis import n_monomials
 from polystokes_tpu_torch.classify import effective_max_regions
+from polystokes_tpu_torch.config import BasisOrder
 
 # f32: sums of up to T^3 terms in another order than the twin; fp64 likewise
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -26,16 +28,16 @@ def _require_cuda():
         pytest.skip("needs a CUDA device")
 
 
-def _random_case(res, T, dtype, seed):
+def _random_case(res, T, dtype, seed, basis=BasisOrder.QUADRATIC):
     """A random coefficient stack with 0/1 reduced-face masks, a solve
-    vector and per-cube polynomial coefficients, made on the CPU from a
-    seed and moved to the card."""
+    vector and per-cube polynomial coefficients of the basis, made on the
+    CPU from a seed and moved to the card."""
     g = torch.Generator().manual_seed(seed)
     c = torch.rand((tpa.N_COEFF,) + res, generator=g, dtype=dtype)
     c[tpa.C_RED:] = (torch.rand((3,) + res, generator=g, dtype=dtype) < 0.6).to(dtype)
     x = torch.randn((7,) + res, generator=g, dtype=dtype)
     cs = tuple(n // T for n in res)
-    v = torch.randn((cs[0], cs[1], 3 * tpa.K, cs[2]), generator=g, dtype=dtype)
+    v = torch.randn((cs[0], cs[1], 3 * n_monomials(basis), cs[2]), generator=g, dtype=dtype)
     return (t.contiguous().cuda() for t in (x, c, v))
 
 
@@ -115,8 +117,35 @@ def test_expand_matches_twin(res, T, dtype):
     _close("expand", tpa.expand_packed(v, red, T), ref, dtype)
     assert tpa.LAUNCHES["expand"] == before + 1
     u = torch.empty_like(ref)
-    tpa._launch("expand", (v, red, u), (*res, T, *tpa.expand_plan(res, T, ref.element_size(), aligned=False)), dtype)
+    tpa._launch("expand", (v, red, u), (*res, T, *tpa.expand_plan(res, T, ref.element_size(), aligned=False)), dtype,
+                BasisOrder.QUADRATIC)
     _close("expand one-slot", u, ref, dtype)
+
+
+@pytest.mark.cuda
+@TILES
+@DTYPES
+def test_affine_kernels_match_twins(res, T, dtype):
+    """The K = 4 forms (the affine basis) of grid_mom_pap and expand
+    against their twins at the planned column and plan, and expand on the
+    one-slot path."""
+    _require_cuda()
+    basis = BasisOrder.AFFINE
+    x, c, v = _random_case(res, T, dtype, seed=50 + T, basis=basis)
+    before = (tpa.LAUNCHES["grid_mom_pap"], tpa.LAUNCHES["expand"])
+    got = tpa.grid_mom_pap_packed(x, c, T, basis)
+    torch.cuda.synchronize()
+    assert got[1].shape[2] == 12
+    ref = tpa.grid_mom_pap_packed_plain(x, c, T, basis)
+    _close("grid_mom_pap affine", got[:2] + (got[2].double().sum(),), ref[:2] + (ref[2].double().sum(),), dtype)
+    red = c[tpa.C_RED:].contiguous()
+    ref = tpa.expand_packed_plain(v, red, T, basis)
+    _close("expand affine", tpa.expand_packed(v, red, T, basis), ref, dtype)
+    assert (tpa.LAUNCHES["grid_mom_pap"], tpa.LAUNCHES["expand"]) == (before[0] + 1, before[1] + 1)
+    u = torch.empty_like(ref)
+    tpa._launch("expand", (v, red, u), (*res, T, *tpa.expand_plan(res, T, ref.element_size(), aligned=False)), dtype,
+                basis)
+    _close("expand affine one-slot", u, ref, dtype)
 
 
 @pytest.mark.cuda

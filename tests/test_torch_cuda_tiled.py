@@ -5,7 +5,9 @@ This file imports no JAX:
 
 * The tile-dependent kernels (moments, expand, grid_mom_pap and
   exp_finish_update, Pallas kernels 1, 2, 4 and 11) at tile 8 on the tiled
-  honey_coil 32^3 setup, in f32 and f64, against their plain twins.
+  honey_coil 32^3 setup, in f32 and f64, against their plain twins; and
+  their affine forms (K = 4) on the same setup assembled in the affine
+  basis, exp_finish_update with kinds arrow and none.
 * ``reduced.RegionSum`` on the card: bit-equal across calls on a tiled and
   an untiled cube map, and within round-off of the CPU's sum.
 * The tiled 32^3 step (tile 8, Path A and Path F) converged and bit-equal
@@ -19,7 +21,7 @@ from polystokes_tpu_torch import packed_apply as tpa
 from polystokes_tpu_torch import solver as tsolver
 from polystokes_tpu_torch import step
 from polystokes_tpu_torch.classify import effective_max_regions
-from polystokes_tpu_torch.config import SolverParams
+from polystokes_tpu_torch.config import BasisOrder, SolverParams
 from polystokes_tpu_torch.reduced import RegionSum
 from polystokes_tpu_torch.scenes.builders import honey_coil
 
@@ -38,11 +40,11 @@ def _params(dtype, **kw):
                         **kw)
 
 
-def _case(dtype):
+def _case(dtype, basis=BasisOrder.QUADRATIC):
     """The tiled setup's stack, region algebra output v, masks, CELL_ARROW
-    factors and three masked random vectors."""
+    factors and three masked random vectors, in the given basis."""
     grid, scene = honey_coil(n=32, dtype=dtype, device="cuda")
-    params = _params(dtype)
+    params = _params(dtype, basis=basis)
     cls, asm = tsolver._setup(grid, scene, params)
     assert int(cls.n_regions) >= 1
     coeffs = tpa.pack_coeffs(asm, cls)
@@ -51,7 +53,7 @@ def _case(dtype):
     g = torch.Generator(device="cuda").manual_seed(3)
     x, r, p = ((torch.randn((7,) + grid.res, generator=g, device="cuda", dtype=dtype) * mask).contiguous()
                for _ in range(3))
-    v = algebra(tpa.moments_packed_plain(x, coeffs, T))
+    v = algebra(tpa.moments_packed_plain(x, coeffs, T, basis))
     factors = tpa.pack_arrow_factors(tsolver.precond_factors_packed(grid, cls, asm, params))
     return dict(coeffs=coeffs, red=red, x=x, r=r, p=p, v=v, factors=factors)
 
@@ -65,26 +67,27 @@ def _close(got, ref, dtype):
         assert scale > 0 and err <= RTOL[dtype] * scale, (i, err, scale)
 
 
-@pytest.mark.cuda
-@DTYPES
-@pytest.mark.parametrize("name", ["moments", "expand", "grid_mom_pap", "exp_finish_update"])
-def test_tile_8_kernel_matches_twin(name, dtype):
-    _require_cuda()
-    c = _case(dtype)
-    x, coeffs = c["x"], c["coeffs"]
+def _kernel_and_twin(name, c, dtype, basis=BasisOrder.QUADRATIC, kind="arrow"):
+    """(kernel call, twin call) of a tile-dependent kernel on the case."""
+    x, coeffs, v = c["x"], c["coeffs"], c["v"]
     alpha = torch.tensor(0.37, dtype=dtype, device="cuda")
     og = tpa.grid_mom_pap_packed_plain(x, coeffs, T)[0]
+    f = c["factors"] if kind == "arrow" else None
     calls = {
-        "moments": (lambda: tpa.moments_packed(x, coeffs, T), lambda: tpa.moments_packed_plain(x, coeffs, T)),
-        "expand": (lambda: tpa.expand_packed(c["v"], c["red"], T), lambda: tpa.expand_packed_plain(c["v"], c["red"], T)),
-        "grid_mom_pap": (lambda: tpa.grid_mom_pap_packed(x, coeffs, T),
-                         lambda: tpa.grid_mom_pap_packed_plain(x, coeffs, T)),
+        "moments": (lambda: tpa.moments_packed(x, coeffs, T, basis), lambda: tpa.moments_packed_plain(x, coeffs, T, basis)),
+        "expand": (lambda: tpa.expand_packed(v, c["red"], T, basis),
+                   lambda: tpa.expand_packed_plain(v, c["red"], T, basis)),
+        "grid_mom_pap": (lambda: tpa.grid_mom_pap_packed(x, coeffs, T, basis),
+                         lambda: tpa.grid_mom_pap_packed_plain(x, coeffs, T, basis)),
         "exp_finish_update": (
-            lambda: tpa.exp_finish_update_packed(x, c["r"], c["p"], alpha, coeffs, og, c["v"], T, c["factors"], "arrow"),
-            lambda: tpa.exp_finish_update_packed_plain(x, c["r"], c["p"], alpha, coeffs, og, c["v"], T, c["factors"],
-                                                       "arrow")),
+            lambda: tpa.exp_finish_update_packed(x, c["r"], c["p"], alpha, coeffs, og, v, T, f, kind, basis=basis),
+            lambda: tpa.exp_finish_update_packed_plain(x, c["r"], c["p"], alpha, coeffs, og, v, T, f, kind, basis)),
     }
-    kernel, twin = calls[name]
+    return calls[name]
+
+
+def _launch_and_compare(name, kernel, twin, dtype):
+    """One launch of the kernel, counted once, against its twin."""
     before = tpa.LAUNCHES[name]
     got = kernel()
     torch.cuda.synchronize()
@@ -94,6 +97,28 @@ def test_tile_8_kernel_matches_twin(name, dtype):
     if name == "grid_mom_pap":  # partials at any granularity: compare their sum
         got, ref = got[:2] + (got[2].double().sum(),), ref[:2] + (ref[2].double().sum(),)
     _close(tuple(got), tuple(ref), dtype)
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("name", ["moments", "expand", "grid_mom_pap", "exp_finish_update"])
+def test_tile_8_kernel_matches_twin(name, dtype):
+    _require_cuda()
+    _launch_and_compare(name, *_kernel_and_twin(name, _case(dtype), dtype), dtype)
+
+
+@pytest.mark.cuda
+@DTYPES
+@pytest.mark.parametrize("name, kind", [("moments", None), ("expand", None), ("grid_mom_pap", None),
+                                        ("exp_finish_update", "arrow"), ("exp_finish_update", "none")])
+def test_tile_8_affine_kernel_matches_twin(name, kind, dtype):
+    """The K = 4 forms on the tiled setup assembled in the affine basis:
+    12 moments and coefficients a cube."""
+    _require_cuda()
+    basis = BasisOrder.AFFINE
+    c = _case(dtype, basis)
+    assert c["v"].shape[2] == 12
+    _launch_and_compare(name, *_kernel_and_twin(name, c, dtype, basis, kind or "arrow"), dtype)
 
 
 def _cube_map(kind, rng):

@@ -5,7 +5,8 @@ The twins of ``grid_mom_pap_packed`` and ``finish_packed`` against the
 Pallas kernels (interpret mode), ``make_apply_packed_pap`` against the JAX
 one, its <x, A x> against the unfused apply, and the deterministic region
 sum of ``reduced.RegionSum``.  The cases (honey_coil and the solid-cut
-floor at 16^3, tile 8 and 16) are those of ``test_torch_packed_apply``.
+floor at 16^3, tile 8 and 16) are those of ``test_torch_packed_apply``;
+``grid_mom_pap`` also runs at ``basis=AFFINE`` (K = 4) at tile 8.
 """
 import numpy as np
 import pytest
@@ -15,12 +16,14 @@ import jax.numpy as jnp
 
 from polystokes_tpu import pallas_apply as jpa
 from polystokes_tpu import solver as jsolver
+from polystokes_tpu.config import BasisOrder as JB
 
 from polystokes_tpu_torch import packed_apply as tpa
 from polystokes_tpu_torch import solver as tsolver
+from polystokes_tpu_torch.config import BasisOrder as TB
 from polystokes_tpu_torch.reduced import RegionSum
 
-from test_torch_packed_apply import _get, _rel
+from test_torch_packed_apply import BASIS_CASES, BASIS_IDS, _get, _rel
 
 torch.set_num_threads(1)
 
@@ -34,16 +37,19 @@ def case(request):
     return _get(request.param)
 
 
-def _jax_grid_mom_pap(case):
+def _jax_grid_mom_pap(case, basis="QUADRATIC"):
     return jpa.grid_mom_pap_packed(jpa._pad_halo(jnp.asarray(case["x"])), case["coeffs_padded"], case["grid"].res,
-                                   case["params"].tile_size, case["params"].basis)
+                                   case["params"].tile_size, JB[basis])
 
 
-def test_grid_mom_pap_twin_matches_pallas(case):
+@pytest.mark.parametrize("key, basis", BASIS_CASES, ids=BASIS_IDS)
+def test_grid_mom_pap_twin_matches_pallas(key, basis):
     """out_grid, the moments and the summed <x, out_grid> partials."""
-    out_j, mom_j, pap_j = _jax_grid_mom_pap(case)
+    case = _get(key)
+    out_j, mom_j, pap_j = _jax_grid_mom_pap(case, basis)
     out_t, mom_t, pap_t = tpa.grid_mom_pap_packed(torch.from_numpy(case["x"]), torch.from_numpy(case["coeffs"]),
-                                                  case["params"].tile_size)
+                                                  case["params"].tile_size, TB[basis])
+    assert mom_t.shape == mom_j.shape
     assert _rel(out_t, out_j) <= KERNEL_RTOL
     assert _rel(mom_t, mom_j) <= KERNEL_RTOL
     assert abs(float(pap_t.sum()) - float(jnp.sum(pap_j))) <= KERNEL_RTOL * abs(float(jnp.sum(pap_j)))

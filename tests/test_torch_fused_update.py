@@ -7,8 +7,9 @@ preconditioner kind, on the cases of ``test_torch_packed_apply``
 (honey_coil and the solid-cut floor of ``_solid_case`` at 16^3, tile 8 and
 16).  Both sides take the same numpy inputs, and the factor stacks that
 JAX builds for CELL_ARROW and DIAGONAL on that case.  The port's own
-factor stacks are held to JAX's apart.  The steps are in
-``test_torch_fused_update_step.py``.
+factor stacks are held to JAX's apart.  ``exp_finish_update`` also runs
+at ``basis=AFFINE`` (K = 4) at tile 8, kinds none and arrow.  The steps
+are in ``test_torch_fused_update_step.py``.
 """
 import numpy as np
 import pytest
@@ -19,15 +20,17 @@ import jax.numpy as jnp
 from polystokes_tpu import pallas_apply as jpa
 from polystokes_tpu import precond as jprecond
 from polystokes_tpu import solver as jsolver
+from polystokes_tpu.config import BasisOrder as JB
 from polystokes_tpu.config import PreconditionerType as JPC
 from polystokes_tpu.deflation import packed_masks as jpacked_masks
 
 from polystokes_tpu_torch import packed_apply as tpa
 from polystokes_tpu_torch import precond as tprecond
 from polystokes_tpu_torch import solver as tsolver
+from polystokes_tpu_torch.config import BasisOrder as TB
 from polystokes_tpu_torch.config import PreconditionerType
 
-from test_torch_packed_apply import _get, _rel
+from test_torch_packed_apply import BASIS_CASES, BASIS_IDS, _get, _rel, basis_v
 
 torch.set_num_threads(1)
 
@@ -113,17 +116,27 @@ def test_finish_update_twin_matches_pallas(case, kind):
     _check(got, ref)
 
 
-@pytest.mark.parametrize("kind", KINDS)
-def test_exp_finish_update_twin_matches_pallas(case, kind):
+# every kind in the quadratic basis; the affine basis (tile 8) with kinds
+# none and arrow
+EXP_CASES = [(key, basis, kind) for (key, basis), bid in zip(BASIS_CASES, BASIS_IDS) for kind in KINDS
+             if basis == "QUADRATIC" or kind != "diag"]
+EXP_IDS = [f"{bid}-{kind}" for (key, basis), bid in zip(BASIS_CASES, BASIS_IDS) for kind in KINDS
+           if basis == "QUADRATIC" or kind != "diag"]
+
+
+@pytest.mark.parametrize("key, basis, kind", EXP_CASES, ids=EXP_IDS)
+def test_exp_finish_update_twin_matches_pallas(key, basis, kind):
+    case = _get(key)
     T = case["params"].tile_size
     assert jpa.exp_finish_supported(case["grid"].res, T)  # JAX takes kernel 11 here too
     i = _inputs(case)
     f = i["fac"][kind]
+    v = basis_v(case, basis)
     ref = jpa.exp_finish_update_packed(_j(case["x"]), _j(i["r"]), _j(i["p"]), jnp.asarray(ALPHA), case["coeffs_padded"],
-                                       _j(i["og"]), _j(case["v"]), case["grid"].res, T, case["params"].basis,
-                                       factors=_j(f), kind=kind)
+                                       _j(i["og"]), _j(v), case["grid"].res, T, JB[basis], factors=_j(f), kind=kind)
     got = tpa.exp_finish_update_packed(_t(case["x"]), _t(i["r"]), _t(i["p"]), torch.tensor(ALPHA, dtype=torch.float64),
-                                       _t(case["coeffs"]), _t(i["og"]), _t(case["v"]), T, factors=_t(f), kind=kind)
+                                       _t(case["coeffs"]), _t(i["og"]), _t(v), T, factors=_t(f), kind=kind,
+                                       basis=TB[basis])
     _check(got, ref)
 
 
@@ -286,10 +299,10 @@ def test_update_wrappers_reject_bad_inputs(bad):
 def test_exp_finish_update_rejects_bad_inputs(bad):
     z7 = torch.zeros((7, 16, 16, 16), dtype=torch.float64)
     c = torch.zeros((tpa.N_COEFF, 16, 16, 16), dtype=torch.float64)
-    v = torch.zeros((2, 2, 3 * tpa.K, 2), dtype=torch.float64)
+    v = torch.zeros((2, 2, 30, 2), dtype=torch.float64)  # 3K rows, K = 10 in the default quadratic basis
     if bad == "coeff_channels":
         c = c[: tpa.N_COEFF_UNIFORM].contiguous()  # no reduced-face masks to expand on
     else:
-        v = torch.zeros((2, 2, 3 * tpa.K, 1), dtype=torch.float64)
+        v = torch.zeros((2, 2, 30, 1), dtype=torch.float64)
     with pytest.raises(ValueError):
         tpa.exp_finish_update_packed(z7, z7, z7, ALPHA, c, z7, v, 8)

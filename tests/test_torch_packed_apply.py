@@ -6,8 +6,11 @@ plain PyTorch twin; the JAX side runs the Pallas kernels as the JAX tests
 do on the CPU (interpret mode, picked by ``_auto_interpret``), on the
 halo-padded inputs they take.  Both get the same numpy inputs, in fp64, at
 16^3 with tile 8 and 16, on honey_coil and on the solid-cut floor of
-``test_packed_solid_untiled._solid_case``.  The CUDA kernels against their
-twins are in ``test_torch_cuda.py``.
+``test_packed_solid_untiled._solid_case``.  The kernels that read the basis
+also run at ``basis=AFFINE`` (K = 4 monomials) at tile 8, and the port's
+affine packed apply is held against JAX's unpacked ``make_apply``, the
+apply ``tests/test_affine.py`` checks against the oracle.  The CUDA kernels
+against their twins are in ``test_torch_cuda.py``.
 """
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from polystokes_tpu import pallas_apply as jpa
 from polystokes_tpu import solver as jsolver
 from polystokes_tpu.classify import classify as jclassify
 from polystokes_tpu.classify import effective_max_regions as jR
+from polystokes_tpu.config import BasisOrder as JB
 from polystokes_tpu.config import PreconditionerType as JPC
 from polystokes_tpu.config import SolverParams as JParams
 from polystokes_tpu.deflation import packed_masks as jpacked_masks
@@ -29,6 +33,7 @@ from polystokes_tpu_torch import convert
 from polystokes_tpu_torch import packed_apply as tpa
 from polystokes_tpu_torch import solver as tsolver
 from polystokes_tpu_torch.classify import is_active
+from polystokes_tpu_torch.config import BasisOrder as TB
 
 from test_packed_solid_untiled import _solid_case
 
@@ -37,7 +42,9 @@ torch.set_num_threads(1)
 SLICE = dict(use_pallas=True, fuse_pap=False, preconditioner=JPC.CELL_ARROW, bicgstab_fallback=False)
 KERNEL_RTOL = 1e-11  # fp64; only the order of the sums differs
 SYM_RTOL = 1e-12
+UNPACKED_RTOL = 1e-10  # fp64; the packed kernels against the unpacked XLA apply (another operation order)
 K = 10
+K_AFFINE = 4
 
 
 def _np(a):
@@ -73,6 +80,7 @@ def _build(name, T):
     cs = tuple(n // T for n in grid.res)
     return dict(
         grid=grid, params=params, cls=cls, asm=asm, R=R, tgrid=tgrid, tparams=tparams, tcls=tcls, tasm=tasm,
+        scene=scene, tscene=tscene,
         coeffs=np.array(jpa.pack_coeffs(asm, cls, pad=False)),
         coeffs_padded=jpa.pack_coeffs(asm, cls, pad=True),
         x=rng.standard_normal((7,) + grid.res) * mask,
@@ -80,6 +88,7 @@ def _build(name, T):
         v=rng.standard_normal((cs[0], cs[1], 3 * K, cs[2])),
         u=rng.standard_normal((3,) + grid.res) * red,
         red=red,
+        v_affine=rng.standard_normal((cs[0], cs[1], 3 * K_AFFINE, cs[2])),
     )
 
 
@@ -98,6 +107,36 @@ def case(request):
     return _get(request.param)
 
 
+# (case, basis) of the kernels that read the basis: every case in the
+# quadratic basis, and the affine basis at tile 8
+BASIS_CASES = [(key, "QUADRATIC") for key in (("honey_coil", 8), ("honey_coil", 16), ("solid", 8), ("solid", 16))]
+BASIS_CASES += [(("honey_coil", 8), "AFFINE"), (("solid", 8), "AFFINE")]
+BASIS_IDS = ["honey_coil-T8", "honey_coil-T16", "solid-T8", "solid-T16", "honey_coil-T8-AFFINE", "solid-T8-AFFINE"]
+
+
+def basis_v(case, basis):
+    """The case's random per-cube coefficients for the basis (3K rows)."""
+    return case["v"] if basis == "QUADRATIC" else case["v_affine"]
+
+
+_AFFINE = {}
+
+
+def affine_setup(key):
+    """The case assembled in the affine basis by both packages (the same
+    classification, which does not read the basis): JAX's unpacked params
+    and Assembled, the port's params and Assembled."""
+    if key not in _AFFINE:
+        case = _get(key)
+        jp, tp = case["params"].replace(basis=JB.AFFINE), case["tparams"].replace(basis=TB.AFFINE)
+        grid, scene, tgrid, tscene = case["grid"], case["scene"], case["tgrid"], case["tscene"]
+        lw, fw = jweights(grid, scene.surface_sdf, scene.collision_sdf, jp.dtype)
+        jasm, _ = jsolver.assemble(grid, scene, case["cls"], lw, fw, jp, case["R"])
+        tasm, _ = tsolver.assemble(tgrid, tscene, case["tcls"], *tsolver._weights(tgrid, tscene, tp), tp, case["R"])
+        _AFFINE[key] = dict(jparams=jp, jasm=jasm, tparams=tp, tasm=tasm)
+    return _AFFINE[key]
+
+
 def test_case_is_meaningful(case):
     """Solid-cut active faces (0 < ffw < 1) and reduced faces both exist."""
     asm, cls = case["tasm"], case["tcls"]
@@ -106,18 +145,24 @@ def test_case_is_meaningful(case):
     assert float(case["red"].sum()) > 0
 
 
-def test_moments_twin_matches_pallas(case):
+@pytest.mark.parametrize("key, basis", BASIS_CASES, ids=BASIS_IDS)
+def test_moments_twin_matches_pallas(key, basis):
+    case = _get(key)
     T = case["params"].tile_size
     ref = jpa.moments_packed(jpa._pad_halo(jnp.asarray(case["x"])), case["coeffs_padded"], case["grid"].res, T,
-                             case["params"].basis)
-    got = tpa.moments_packed(torch.from_numpy(case["x"]), torch.from_numpy(case["coeffs"]), T)
+                             JB[basis])
+    got = tpa.moments_packed(torch.from_numpy(case["x"]), torch.from_numpy(case["coeffs"]), T, TB[basis])
+    assert got.shape[2] == 3 * (K if basis == "QUADRATIC" else K_AFFINE)
     assert _rel(got, ref) <= KERNEL_RTOL
 
 
-def test_expand_twin_matches_pallas(case):
+@pytest.mark.parametrize("key, basis", BASIS_CASES, ids=BASIS_IDS)
+def test_expand_twin_matches_pallas(key, basis):
+    case = _get(key)
     T = case["params"].tile_size
-    ref = jpa.expand_packed(jnp.asarray(case["v"]), jnp.asarray(case["red"]), case["grid"].res, T, case["params"].basis)
-    got = tpa.expand_packed(torch.from_numpy(case["v"]), torch.from_numpy(case["red"]), T)
+    v = basis_v(case, basis)
+    ref = jpa.expand_packed(jnp.asarray(v), jnp.asarray(case["red"]), case["grid"].res, T, JB[basis])
+    got = tpa.expand_packed(torch.from_numpy(v), torch.from_numpy(case["red"]), T, TB[basis])
     assert _rel(got, ref) <= KERNEL_RTOL
 
 
@@ -143,6 +188,21 @@ def test_apply_symmetric(case):
     apply_t = tsolver.make_apply_packed(case["tgrid"], case["tcls"], case["tasm"], case["tparams"], case["R"])
     x, y = torch.from_numpy(case["x"]), torch.from_numpy(case["y"])
     y_ax, ay_x = float(torch.sum(y * apply_t(x))), float(torch.sum(apply_t(y) * x))
+    assert abs(y_ax - ay_x) <= SYM_RTOL * abs(y_ax)
+
+
+@pytest.mark.parametrize("key", [("honey_coil", 8), ("solid", 8)], ids=["honey_coil-T8", "solid-T8"])
+def test_affine_packed_apply_matches_unpacked_jax(key):
+    """The port's affine packed apply (moments -> algebra at K = 4 -> expand
+    -> apply_reduced) against JAX's unpacked affine apply, and symmetric."""
+    case, aff = _get(key), affine_setup(key)
+    japply = jsolver.make_apply(case["grid"], case["cls"], aff["jasm"], aff["jparams"].replace(use_pallas=False), case["R"])
+    ref = jpa.pack_ptau(japply(jpa.unpack_ptau(jnp.asarray(case["x"]))))
+    apply_t = tsolver.make_apply_packed(case["tgrid"], case["tcls"], aff["tasm"], aff["tparams"], case["R"])
+    x, y = torch.from_numpy(case["x"]), torch.from_numpy(case["y"])
+    ax = apply_t(x)
+    assert _rel(ax, ref) <= UNPACKED_RTOL
+    y_ax, ay_x = float(torch.sum(y * ax)), float(torch.sum(apply_t(y) * x))
     assert abs(y_ax - ay_x) <= SYM_RTOL * abs(y_ax)
 
 

@@ -7,8 +7,8 @@ cases of ``test_torch_packed_apply`` (honey_coil and the solid-cut floor
 of ``_solid_case`` at 16^3, tile 8 and 16).  The Woodbury capacitance
 inverse ``region_schur_inv`` and the packed REGION_ARROW solve run
 against JAX's on honey_coil, the solid-cut floor and the liquid box of
-``test_pallas_apply._make(True)`` taken untiled (the port implements only
-untiled cube regions).  One JAX step, at a fixed budget of 20 iterations,
+``test_pallas_apply._make(True)`` taken untiled, and on honey_coil
+assembled in the affine basis (11 probes, K = 4 kernels).  One JAX step, at a fixed budget of 20 iterations,
 holds the port's REGION_ARROW step to JAX's; the converged step is held
 to the port's own CELL_ARROW step, which solves the same system.
 """
@@ -41,7 +41,7 @@ from polystokes_tpu_torch.precond import _arrow_solve_from, cell_arrow_factors, 
 from polystokes_tpu_torch.scenes.builders import honey_coil
 
 from test_operators import make_case
-from test_torch_packed_apply import _get, _rel
+from test_torch_packed_apply import _get, _rel, affine_setup
 
 torch.set_num_threads(1)
 
@@ -162,11 +162,15 @@ def _region_case(key):
         if not _BOX:
             _BOX.update(_build_box())
         return _BOX
+    if key == "affine":  # honey_coil T8 assembled in the affine basis: D = 11, K = 4
+        aff = affine_setup(("honey_coil", 8))
+        return {**_get(("honey_coil", 8)), "params": aff["jparams"], "asm": aff["jasm"], "tparams": aff["tparams"],
+                "tasm": aff["tasm"]}
     return _get(key)
 
 
-REGION_CASES = [("honey_coil", 8), ("solid", 8), "box"]
-REGION_IDS = ["honey_coil-T8", "solid-T8", "box-T8"]
+REGION_CASES = [("honey_coil", 8), ("solid", 8), "box", "affine"]
+REGION_IDS = ["honey_coil-T8", "solid-T8", "box-T8", "honey_coil-T8-AFFINE"]
 _REGION = {}
 
 

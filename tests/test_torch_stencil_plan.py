@@ -63,7 +63,7 @@ def test_wrappers_take_the_twin_on_cpu():
     res, T = (8, 8, 16), 8
     x = torch.randn((7,) + res, generator=g, dtype=torch.float64)
     c = torch.rand((tpa.N_COEFF,) + res, generator=g, dtype=torch.float64)
-    v = torch.randn((1, 1, 3 * tpa.K, 2), generator=g, dtype=torch.float64)
+    v = torch.randn((1, 1, 30, 2), generator=g, dtype=torch.float64)  # 3K rows, K = 10 (the default quadratic basis)
     u = torch.randn((3,) + res, generator=g, dtype=torch.float64)
     before = dict(tpa.LAUNCHES)
     got = tpa.grid_mom_pap_packed(x, c, T)

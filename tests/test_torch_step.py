@@ -16,13 +16,14 @@ import torch
 import jax.numpy as jnp
 
 from polystokes_tpu import step as jstep
+from polystokes_tpu.config import BasisOrder as JBasisOrder
 from polystokes_tpu.config import PreconditionerType as JPC
 from polystokes_tpu.config import SolverParams as JParams
 from polystokes_tpu.scenes import builders as jbuilders
 
 from polystokes_tpu_torch import convert
 from polystokes_tpu_torch import step as tstep
-from polystokes_tpu_torch.config import SolverParams
+from polystokes_tpu_torch.config import BasisOrder, SolverParams
 
 torch.set_num_threads(1)
 
@@ -114,6 +115,12 @@ def test_unported_options_raise(field, value):
 @pytest.mark.parametrize("value", [True, False])
 def test_ported_options_construct(field, value):
     assert getattr(SolverParams(**{field: value}), field) is value
+
+
+def test_affine_basis_is_ported():
+    """BasisOrder.AFFINE (the CLI's --affine) constructs, with JAX's 11 DOFs."""
+    p = SolverParams(basis=BasisOrder.AFFINE)
+    assert p.basis == BasisOrder.AFFINE and p.reduced_dof == JParams(basis=JBasisOrder.AFFINE).reduced_dof == 11
 
 
 def test_fuse_pap_defaults_on_as_in_jax():
