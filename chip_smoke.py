@@ -91,8 +91,9 @@ Phases (any failed check exits non-zero before the final line):
      with fuse_update and fuse_expand) and R_t (A_t with REGION_ARROW), one
      timed step each, converged with their paths' launches; S16 and S8,
      Path A on armadillo_melt_si 256^3 at tile 16 and tile 8 (the suite's
-     configs 16 and 18, at the scene's density 1000 as the suite's
-     sample_density sets it; n_regions beside 753 and 3542, printed),
+     configs 16 and 18, at the scene's density 1000, which
+     solver.sample_density reads off its field as the suite's does;
+     n_regions beside 753 and 3542, printed),
      converged with their launches, with the setup seconds, ms per apply
      and peak device memory; and the tiled 32^3 step at tile 8 on the card
      against the CPU port (phase 10's bound).
@@ -103,6 +104,22 @@ Phases (any failed check exits non-zero before the final line):
      of the K = 4 kernels, bit-equal repeats); the CLI test's
      configuration (affine, DIAGONAL, tile 8) at 128^3, one step; and the
      affine 32^3 step on the card against the CPU port (phase 10's bound).
+ 16. the frame loop (sim.simulate through solver.sample_density, the two
+     configurations of the JAX package's benchmarks/frames_ab.py),
+     honey_coil 128^3, f32, tol 1e-3, CELL_ARROW, fuse_pap, FRAMES frames
+     a run: tiled (tile 16, padding 2) with the device warm start, the
+     same again, tiled cold, and uniform with the warm start.  Every frame
+     converged with error < 1e-3, finite velocities and SDF, and the
+     launches of A_t (tiled) or B_fused (uniform) from counters set to 0
+     before the frame; the two warm tiled runs with equal iterations and
+     bit-equal velocities and SDF; the warm x0 of frame 1 non-zero;
+     device memory after frames 2-FRAMES at most one scene's bytes above
+     frame 1's.  Printed per frame: iterations, solve and frame seconds,
+     advection ms, capture seconds, peak device memory.  Then the
+     windowed and the gather advection of the SDF at 128^3 (ms a call and
+     device ms), agreeing within 1e-6 of max on a constant velocity; and
+     one 32^3 frame (tile 8, tol 1e-5) on the card against the CPU port:
+     velocities and SDF each within phase 10's bound of their max.
 Phase 2 also holds the tile-dependent kernels (moments, expand,
 grid_mom_pap, exp_finish_update) against their twins at tile 8 on the
 tiled armadillo_melt_si 256^3 setup of S8, with their device times and
@@ -190,6 +207,7 @@ TILE_8 = 8
 N_SI = 256
 # the JAX suite's TPU records (BENCH_SUITE.json), printed beside ours, not held
 JAX_REGIONS = {"A_t": 152, "S16": 753, "S8": 3542}
+FRAMES = 4  # phase 16's frames per run
 
 
 def ptxas_summary(report: str):
@@ -529,12 +547,12 @@ def main() -> None:
     from polystokes_tpu_torch.scenes.builders import armadillo_melt_si
 
     grid_si, scene_si = armadillo_melt_si(n=N_SI, dtype=torch.float32, device=dev)
-    # the constant density of the scene's field (1000), which the JAX suite
-    # sets through solver.sample_density (benchmarks/suite.py:64); step
-    # does not read the field
-    si_density = float(scene_si.density.amin())
-    p_s8 = params(torch.float32, 1e-3, 12000, fuse_pap=True, do_tile=True, tile_size=TILE_8,
-                  constant_density=si_density)
+    # the constant density of the scene's field (1000), set through
+    # solver.sample_density as the JAX suite sets it (benchmarks/suite.py:64);
+    # step does not read the field
+    p_s8 = solver.sample_density(scene_si, params(torch.float32, 1e-3, 12000, fuse_pap=True, do_tile=True,
+                                                  tile_size=TILE_8))
+    print(f"phase 2 armadillo_melt_si density through sample_density: {p_s8.constant_density}", flush=True)
     t0 = time.perf_counter()
     cls8, asm8 = solver._setup(grid_si, scene_si, p_s8)
     coeffs8 = pa.pack_coeffs(asm8, cls8)
@@ -916,7 +934,7 @@ def main() -> None:
                             p_t.replace(preconditioner=PreconditionerType.REGION_ARROW), tiled)
     check_launches("R_t", "phase 14 R_t", st, launches)
     for label, T in (("S16", TILE), ("S8", TILE_8)):
-        p_s = p_t.replace(tile_size=T, constant_density=si_density)
+        p_s = solver.sample_density(scene_si, p_t.replace(tile_size=T))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -967,6 +985,154 @@ def main() -> None:
     print(f"phase 15 affine {N_CPU}^3 tile {TILE_8}, card and CPU:", flush=True)
     agree(f"phase 15 affine {N_CPU}^3 tile {TILE_8} velocities, card against CPU", step_32("cuda", p32aff),
           step_32("cpu", p32aff))
+
+    # -- phase 16: the frame loop (sim.simulate) with the device warm start,
+    # the two configurations of the JAX package's benchmarks/frames_ab.py
+    from polystokes_tpu_torch import sim
+
+    frame_runs = {}
+
+    def run_frames(label, p, path):
+        """FRAMES frames of honey_coil 128^3 through sample_density and
+        simulate; per frame its stats, launches (counters set to 0 before
+        the frame), seconds, the solve's and the advection's share, device
+        memory after it and its peak.  The solve and the advection are timed
+        by wrapping sim.step and sim.advect_field with synchronised host
+        clocks for this run."""
+        p = solver.check_pallas(grid, scene, solver.sample_density(scene, p))
+        spent = {"step": 0.0, "advect_field": 0.0}
+        originals = {name: getattr(sim, name) for name in spent}
+
+        def timed(name):
+            fn = originals[name]
+
+            def wrapper(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+                return out
+
+            return wrapper
+
+        rec = []
+        clock = [0.0]
+
+        def after_frame(k, sc, st):
+            torch.cuda.synchronize()
+            frame_s = time.perf_counter() - clock[0]
+            launches = dict(pa.LAUNCHES)
+            finite = all(bool(torch.isfinite(t).all()) for t in sc.velocity + (sc.surface_sdf,))
+            rec.append({"frame": k, "iterations": st["iterations"], "error": st["error"],
+                        "converged": st["converged"], "boundary_active": st["boundary_active"],
+                        "passes": st["loop_passes"], "applies": st["operator_applies"],
+                        "n_regions": st["n_regions"], "capture_s": st["capture_seconds"], "frame_s": frame_s,
+                        "solve_s": spent["step"], "advect_ms": 1e3 * spent["advect_field"],
+                        "allocated": torch.cuda.memory_allocated(), "peak": torch.cuda.max_memory_allocated(),
+                        "launches": launches, "finite": finite})
+            spent.update(step=0.0, advect_field=0.0)
+            pa.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            clock[0] = time.perf_counter()
+
+        sim.step, sim.advect_field = timed("step"), timed("advect_field")
+        try:
+            pa.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            clock[0] = time.perf_counter()
+            out, _ = sim.simulate(grid, scene, p, FRAMES, callback=after_frame)
+        finally:
+            sim.step, sim.advect_field = originals["step"], originals["advect_field"]
+        for r in rec:
+            print(f"phase 16 {label} frame {r['frame']}: iterations {r['iterations']}, error {r['error']:.3e}, "
+                  f"converged {r['converged']}, n_regions {r['n_regions']}, solve {r['solve_s']:.3f} s, advection "
+                  f"{r['advect_ms']:.2f} ms, capture {r['capture_s']:.3f} s, frame {r['frame_s']:.3f} s, peak device "
+                  f"memory {r['peak'] / 2**30:.3f} GiB, allocated after it {r['allocated'] / 2**30:.3f} GiB, "
+                  f"launches {r['launches']}", flush=True)
+            if not (r["converged"] and r["error"] < 1e-3 and r["boundary_active"] == 0 and r["finite"]):
+                fail(f"phase 16 {label} frame {r['frame']} did not converge cleanly or is not finite: {r}")
+            want = expected_launches(path, 1 + r["passes"])
+            if r["launches"] != want:
+                fail(f"phase 16 {label} frame {r['frame']}: launches {r['launches']}, expected {want}")
+        frame_runs[label] = (out, rec)
+        return out, rec
+
+    p_ft = p_t.replace(use_warm_start=True, device_warm_start=True)
+    frame_paths = (("tiled_warm", p_ft, "A_t"), ("uniform_warm", p_ft.replace(do_reduced_regions=False), "B_fused"),
+                   ("tiled_cold", p_ft.replace(use_warm_start=False, device_warm_start=False), "A_t"),
+                   ("tiled_warm_again", p_ft, "A_t"))
+    scene_bytes = sum(t.numel() * t.element_size() for t in
+                      scene.velocity + scene.collision_velocity + (scene.surface_sdf, scene.collision_sdf, scene.viscosity))
+    for label, p, path in frame_paths:
+        _, rec = run_frames(label, p, path)
+        rise = max(r["allocated"] for r in rec[1:]) - rec[0]["allocated"]
+        print(f"phase 16 {label}: device memory after frames 2-{FRAMES} rises {rise / 2**20:.1f} MiB over frame 1's "
+              f"(one scene {scene_bytes / 2**20:.1f} MiB)", flush=True)
+        if rise > scene_bytes:
+            fail(f"phase 16 {label}: device memory grows frame over frame ({rise} bytes > one scene, {scene_bytes})")
+        for name, n in rec[0]["launches"].items():
+            if n:
+                table[name]["launches_by_path"][f"frame_{label}"] = [r["launches"][name] for r in rec]
+    (out_w, rec_w), (out_r, rec_r) = frame_runs["tiled_warm"], frame_runs["tiled_warm_again"]
+    same = all(torch.equal(a, b) for a, b in zip(out_w.velocity + (out_w.surface_sdf,),
+                                                  out_r.velocity + (out_r.surface_sdf,)))
+    its_w, its_r = [r["iterations"] for r in rec_w], [r["iterations"] for r in rec_r]
+    its_c = [r["iterations"] for r in frame_runs["tiled_cold"][1]]
+    its_u = [r["iterations"] for r in frame_runs["uniform_warm"][1]]
+    print(f"phase 16 iterations per frame: tiled warm {its_w}, again {its_r}, tiled cold {its_c}, uniform warm "
+          f"{its_u}; the repeat bit-equal (velocity and SDF) {same}", flush=True)
+    if not (its_w == its_r and same):
+        fail("phase 16: two tiled warm runs from the same scene differ")
+    # the warm x0 of frame 1: the step's guess on the kicked scene, and the
+    # initial residual |b - A x0| it gives beside |b| (the cold start's)
+    kicked = sim._gravity_kick(scene, p_ft)
+    cls_k, asm_k = solver._setup(grid, kicked, p_ft)
+    apply_k, _, _, _, b_k, x0_k = solver._build_krylov_system(grid, cls_k, asm_k, kicked, p_ft)
+    x0_norm = float(x0_k.double().norm())
+    r0_norm, b_norm = float((b_k - apply_k(x0_k)).double().norm()), float(b_k.double().norm())
+    print(f"phase 16 frame 1 warm x0: norm {x0_norm:.6e}; initial residual |b - A x0| {r0_norm:.6e} against "
+          f"|b| {b_norm:.6e} (the cold start's)", flush=True)
+    if not x0_norm > 0.0:
+        fail("phase 16: the warm start of frame 1 is zero")
+    vel_f = out_w.velocity
+    del frame_runs, out_w, out_r, kicked, cls_k, asm_k, apply_k, b_k, x0_k
+
+    # the windowed and the gather advection at 128^3 on the tiled warm run's
+    # last velocity (substeps from its CFL), and on a constant velocity,
+    # where the two agree to round-off
+    dtdx = scene.dt / torch.tensor(grid.dx, dtype=torch.float32, device=dev)
+    n_sub = sim.cfl_substeps(vel_f, float(dtdx))
+    sdf = scene.surface_sdf
+    for label, fn in (("windowed", lambda: sim.advect_field(sdf, vel_f, dtdx, (0.0, 0.0, 0.0), substeps=n_sub)),
+                      ("gather", lambda: sim.advect_field_gather(sdf, vel_f, dtdx, (0.0, 0.0, 0.0)))):
+        print(f"phase 16 {label} advection of the SDF {N_MAIN}^3 (substeps {n_sub}): {median_ms(fn, 5):.3f} ms a call "
+              f"(host included), device {graph_ms(fn, 2, 3):.3f} ms", flush=True)
+    # displacements of 0.7, 0.4 and 0.1 cells
+    vel_c = tuple(torch.full(grid.face_shape(a), (0.7 - 0.3 * a) / float(dtdx), device=dev) for a in range(3))
+    d_w = sim.advect_field(sdf, vel_c, dtdx, (0.0, 0.0, 0.0))
+    d_g = sim.advect_field_gather(sdf, vel_c, dtdx, (0.0, 0.0, 0.0))
+    d_adv = float((d_w - d_g).abs().max()) / float(d_g.abs().max())
+    print(f"phase 16 windowed against gather on a constant velocity: max|diff| / max {d_adv:.3e}", flush=True)
+    if not d_adv <= 1e-6:
+        fail(f"phase 16: the windowed advection disagrees with the gather one on a constant velocity: {d_adv}")
+
+    # one frame at 32^3, the card against the CPU port
+    p32f = p32t.replace(device_warm_start=True)
+    frames32 = {}
+    for where in ("cuda", "cpu"):
+        g32, s32 = honey_coil(n=N_CPU, dtype=torch.float32, device=where)
+        n32 = sim.cfl_substeps(s32.velocity, float(s32.dt) / g32.dx)
+        t0 = time.perf_counter()
+        f32_, st32 = sim.simulate_frame(g32, s32, p32f, substeps=n32)
+        print(f"phase 16 frame {N_CPU}^3 tile {TILE_8} on {where}: {time.perf_counter() - t0:.2f} s, substeps {n32}, "
+              f"iterations {st32['iterations']}, error {st32['error']:.3e}, converged {st32['converged']}", flush=True)
+        if not st32["converged"]:
+            fail(f"phase 16: the {N_CPU}^3 frame on {where} did not converge")
+        frames32[where] = [t.double().cpu() for t in f32_.velocity + (f32_.surface_sdf,)]
+    agree(f"phase 16 frame {N_CPU}^3 velocities, card against CPU", frames32["cuda"][:3], frames32["cpu"][:3])
+    agree(f"phase 16 frame {N_CPU}^3 surface SDF, card against CPU", frames32["cuda"][3:], frames32["cpu"][3:])
 
     for name, entry in table.items():
         if MAIN_PATH[name] is None:

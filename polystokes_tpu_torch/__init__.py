@@ -13,6 +13,9 @@ uniform one, CELL_ARROW preconditioned CG, on the packed kernel path::
 ``solve_chunked`` runs the same solve in CG segments that can be
 interrupted, timed out and resumed from a state file, as the JAX package's.
 On the card the CG iteration is replayed from a CUDA graph (``krylov``).
+``sim.simulate`` runs frames of gravity, ``step`` and advection, as the
+JAX package's frame loop; ``device_warm_start`` starts each solve from
+the old velocity.
 Importing the package turns TF32 off (``precision.py``).
 """
 from .config import BasisOrder, MatrixScheme, PreconditionerType, SolverParams, SolverType

@@ -85,7 +85,6 @@ _UNSUPPORTED = (
     ("deflation", (False,), "Queue 1 item 15 (deflation)"),
     ("coeff_bf16", (False,), "Queue 1 item 15 (bf16 coefficients)"),
     ("use_pallas", (True,), "Queue 1 item 7 (the unpacked apply)"),
-    ("device_warm_start", (False,), "Queue 1 item 11 (device warm start)"),
     ("export_matrices", (False,), "Queue 1 item 13 (export)"),
     ("export_component_matrices", (False,), "Queue 1 item 13 (export)"),
     ("export_stats", (False,), "Queue 1 item 13 (export)"),
@@ -96,10 +95,12 @@ _UNSUPPORTED = (
 class SolverParams:
     """All solver knobs of ``polystokes_tpu.config.SolverParams``.
 
-    ``use_warm_start`` feeds only the host EIGEN path and the ``mg_*``
-    knobs only under MULTIGRID, exactly as in the JAX package; each of those
-    switches raises above.  ``fuse_expand`` acts only under ``fuse_update``
-    on the reduced step."""
+    ``device_warm_start`` with ``use_warm_start`` seeds the device CG with
+    the warm-start guess (``solver._warm_guess``), as in the JAX package.
+    There ``use_warm_start`` alone feeds only the host EIGEN path and the
+    ``mg_*`` knobs act only under MULTIGRID; both of those switches raise
+    above.  ``fuse_expand`` acts only under ``fuse_update`` on the reduced
+    step."""
 
     # -- discretization / solve control
     tolerance: float = 1e-3

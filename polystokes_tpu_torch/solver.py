@@ -74,7 +74,8 @@ class Scene:
     Optional ``surface_weights`` / ``collision_weights`` (3 face tensors
     each) override the face liquid / fluid weights, floored at MINWEIGHT
     where positive (Solver.cpp:183-237).  ``density`` is carried as in the
-    JAX package, where ``step`` does not read it either."""
+    JAX package, where ``step`` does not read it either: ``sample_density``
+    validates it and folds its constant into the parameters."""
 
     surface_sdf: torch.Tensor  # (nx,ny,nz) liquid SDF at centers, <0 inside
     collision_sdf: torch.Tensor  # (nx,ny,nz) solid SDF at centers, <0 inside
@@ -85,6 +86,26 @@ class Scene:
     surface_weights: Optional[tuple] = None
     collision_weights: Optional[tuple] = None
     density: Optional[torch.Tensor] = None
+
+
+def sample_density(scene: Scene, params: SolverParams) -> SolverParams:
+    """Density-field input validation (HDK_PolyStokes.C:290-304), as the
+    JAX package's: the reference rejects a variable density field ("only
+    constant density is supported") and otherwise samples the constant
+    from it, which ``effective_density`` clamps into [min_density,
+    max_density].  Returns ``params`` itself when the scene carries no
+    field, else params with ``constant_density`` set.  The field's min and
+    max are reduced on its device; two scalars go to the host."""
+    if scene.density is None:
+        return params
+    lo, hi = torch.stack(torch.aminmax(torch.as_tensor(scene.density))).tolist()
+    scale = max(abs(lo), abs(hi), 1e-30)
+    if (hi - lo) / scale > 1e-6:
+        raise ValueError(
+            f"variable density fields are not supported (field range [{lo}, {hi}]); "
+            "the reference solver imposes the same restriction (HDK_PolyStokes.C:290-304)"
+        )
+    return params.replace(constant_density=lo)
 
 
 def _apply_input_weights(lw, fw, scene, dtype):
@@ -422,13 +443,30 @@ def build_rhs(grid: Grid, cls: Classification, asm: Assembled, params: SolverPar
     return transpose_from_faces(asm, fv) + asm.rhs_solid
 
 
+def _warm_guess(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams) -> PTau:
+    """The device warm start (the reference's constructGuessVectors,
+    Solver.cpp:521-531), as the JAX package builds it: the old velocity,
+    plus the regions' best-fit polynomials on the reduced step, taken to
+    the solve variable through t = [G Dt]^T f:
+    x0 = (-t.p, 2 uinv_c t.tc, 2 uinv_e t.te)."""
+    fguess = list(asm.old_v)
+    if params.do_reduced_regions:
+        u_fit = expand_J(grid, cls, asm.com, asm.best_fit, params)
+        fguess = [fguess[a] + u_fit[a] for a in range(3)]
+    t = transpose_from_faces(asm, fguess)
+    return PTau(p=-t.p, tc=tuple(2.0 * asm.uinv_c * t.tc[a] for a in range(3)),
+                te=tuple(2.0 * asm.uinv_e[e] * t.te[e] for e in range(3)))
+
+
 def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParams, initial_guess=None, pfac=None):
     """(apply_K, apply_dot, fused_update, precond, b_K, x0_K) on the packed
     layout: the unsharded, undeflated branch of the JAX package's
     ``_build_krylov_system``; ``apply_dot`` is the fused apply with
     <p, A p> under ``fuse_pap``, else None; ``fused_update`` the fused CG
     update under ``fuse_update`` with a pointwise preconditioner, else
-    None.  ``initial_guess`` (a PTau) seeds the solve, else zero; ``pfac``
+    None.  ``initial_guess`` (a PTau) seeds the solve; without it
+    ``device_warm_start`` and ``use_warm_start`` together seed it with
+    ``_warm_guess``, else it starts from zero.  ``pfac``
     (``precond_factors_packed``) skips the factors, which
     ``solve_chunked`` computes once."""
     R = effective_max_regions(grid, params)
@@ -440,6 +478,8 @@ def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParam
     apply_dot = (make_apply_packed_pap(grid, cls, asm, params, R, defer_finish=_defer_finish(params, fused_update))
                  if params.fuse_pap else None)
     precond = make_preconditioner_packed(grid, cls, asm, params, pfac)
+    if initial_guess is None and params.device_warm_start and params.use_warm_start:
+        initial_guess = _warm_guess(grid, cls, asm, params)
     x0_K = torch.zeros_like(b_K) if initial_guess is None else pack_ptau(initial_guess).to(b_K.dtype)
     return apply_K, apply_dot, fused_update, precond, b_K, x0_K
 
@@ -603,7 +643,9 @@ def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
         res = krylov.KrylovResult(x=x0_K, iterations=0, error=0.0, converged=True, applies=0, passes=0)
         return _write_back(grid, scene, params, cls, asm, res)
     carry, loop = _chunk_init(grid, scene, params, cls, asm, initial_guess)
-    return _chunk_finalize(grid, scene, params, cls, asm, loop.segment(carry), loop.passes)
+    new_vel, valid, stats = _chunk_finalize(grid, scene, params, cls, asm, loop.segment(carry), loop.passes)
+    stats["capture_seconds"] = loop.capture_seconds or 0.0  # the CUDA graphs' capture, 0 where none
+    return new_vel, valid, stats
 
 
 def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters: int = 500, max_seconds: float = None,

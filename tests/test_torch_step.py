@@ -90,6 +90,7 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "pre = set(sys.modules)\n"
         "import polystokes_tpu_torch, polystokes_tpu_torch.convert, polystokes_tpu_torch.scenes.builders\n"
+        "import polystokes_tpu_torch.sim\n"
         "new = set(sys.modules) - pre\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'polystokes_tpu'))\n"
         "assert not bad, bad\n"
@@ -111,7 +112,8 @@ def test_unported_options_raise(field, value):
         SolverParams(**{field: value})
 
 
-@pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions", "fuse_update", "fuse_expand", "do_tile"])
+@pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions", "fuse_update", "fuse_expand", "do_tile",
+                                   "device_warm_start"])
 @pytest.mark.parametrize("value", [True, False])
 def test_ported_options_construct(field, value):
     assert getattr(SolverParams(**{field: value}), field) is value
