@@ -120,6 +120,40 @@ Phases (any failed check exits non-zero before the final line):
      device ms), agreeing within 1e-6 of max on a constant velocity; and
      one 32^3 frame (tile 8, tol 1e-5) on the card against the CPU port:
      velocities and SDF each within phase 10's bound of their max.
+ 17. the cropped solve (domain.solve_cropped, the CLI's --crop) on
+     armadillo_melt_si 256^3 with S16's parameters (the JAX suite's
+     config 23): the box (checked by check_pallas) and its share of the
+     domain, then a warm and two timed solves on it: converged, exact
+     launches of A (C16), bit-equal repeats, the DOF and region counts of
+     S16, the input velocity outside the box and no valid face there;
+     printed beside S16's (phase 14 keeps its velocities and figures):
+     iterations, n_regions, seconds, ms per apply, capture seconds, peak
+     device memory, and the velocities inside the box against S16's.
+     Kernels 1-5 against their twins at the box's shape (224^3), as in
+     phase 2.  Then one solution through both systems: the cropped system's CG
+     (bit-equal to the timed runs), its x in fp64 through the cropped
+     system and, embedded, through the full-domain one, whose residual
+     b - A x inside the box agrees with the cropped one's within
+     CROP_RTOL of max(|A x|, |b|) (and is within it of 0 outside) and
+     whose write-back inside the box is within CROP_RTOL of max |v| of
+     the cropped one's.  Two tol-1e-3 solves of this scene need not agree to
+     that bound (S16 at tol 1e-3 and 1e-5 are printed apart), so the
+     cropped and the uncropped tol-1e-3 velocities are printed, not held;
+     S16 and the cropped solve at tol 1e-5 are printed beside them;
+ 18. the other solvers: solver_type BICGSTAB (tol 1e-5), MINRES (20
+     iterations) and the BiCGStab fallback (PCG stopped at 20 iterations,
+     then 20 of BiCGStab) at 32^3 in fp64 on the card against the CPU
+     port, each within phase 10's bound (fp64: in f32 this BiCGStab meets
+     a tol-1e-5 test only by letting x grow, and this MINRES overflows
+     within 10 iterations); one BICGSTAB step at 128^3, tol 1e-3, in f32
+     and in fp64 (iterations, converged, seconds, ms per apply) with the
+     launches of kernels 1-3, 1 + 3 passes each;
+ 19. the CLI end to end, each run a process of its own: python -m
+     polystokes_tpu_torch.run with JAX's default flags on honey_coil 64^3
+     (IDENTITY, BiCGStab fallback) for 2 steps with a checkpoint, resumed
+     for 1 (printing step 2), with --crop --chunked, and with --sim for 2
+     frames: each exits with 0 and prints its step or frame lines with
+     converged=True.
 Phase 2 also holds the tile-dependent kernels (moments, expand,
 grid_mom_pap, exp_finish_update) against their twins at tile 8 on the
 tiled armadillo_melt_si 256^3 setup of S8, with their device times and
@@ -153,6 +187,7 @@ KERNEL_RTOL = 1e-5  # f32 sums of up to 4096 terms in another order than the twi
 SYM_RTOL = 1e-5
 PAP_RTOL = 1e-5  # the fused <x, A x> against the unfused one: f32, the symmetry bound
 VEL_ATOL = 2e-4  # times max |v|: the packed-against-XLA bound of the JAX tests
+CROP_RTOL = 1e-9  # the cropped system against the full one on one x, fp64: sums in another order
 # (by, bz, L) of the uniform kernels timed in phase 2 at 128^3: 16 x 16 as
 # grid_mom_pap's column, 8 x 32 and 4 x 32 for 128-byte z rows, 4 x 64 for
 # 256-byte ones, runs of 16-32 planes
@@ -195,7 +230,7 @@ MAIN_PATH = {"moments": "A", "expand": "A", "apply_reduced": "A", "grid_mom_pap"
 
 # the tiled paths of phase 14 and the affine ones of phase 15 launch as
 # their untiled quadratic counterparts
-TILED_PATHS = {"A_t": "A", "F_t": "F", "R_t": "A_region", "S16": "A", "S8": "A"}
+TILED_PATHS = {"A_t": "A", "F_t": "F", "R_t": "A_region", "S16": "A", "S8": "A", "C16": "A"}
 AFFINE_PATHS = {"A_aff": "A", "F_aff": "F", "D8_aff": "A"}
 # the kernels that read the basis: their K = 4 forms are rows <name>_k4 of
 # the kernel table, launched on the affine paths
@@ -206,7 +241,10 @@ MAIN_PATH.update({"moments_k4": "A_aff", "expand_k4": "A_aff", "grid_mom_pap_k4"
 TILE_8 = 8
 N_SI = 256
 # the JAX suite's TPU records (BENCH_SUITE.json), printed beside ours, not held
-JAX_REGIONS = {"A_t": 152, "S16": 753, "S8": 3542}
+JAX_REGIONS = {"A_t": 152, "S16": 753, "S8": 3542, "C16": 753}
+# the JAX suite's record of its cropped config 23 (crop_tiled_armadillo_si_256):
+# iterations and the box's resolution, printed beside ours
+JAX_CROP = {"iterations": 836, "res": (224, 224, 224)}
 FRAMES = 4  # phase 16's frames per run
 
 
@@ -253,7 +291,7 @@ def params(dtype, tol, max_iters, **kw):
     from polystokes_tpu_torch import SolverParams
 
     base = dict(dtype=dtype, do_tile=False, tile_size=TILE, tile_padding=2, max_regions=64, tolerance=tol,
-                max_iterations=max_iters)
+                max_iterations=max_iters, bicgstab_fallback=False)
     return SolverParams(**{**base, **kw})
 
 
@@ -332,6 +370,9 @@ def expected_launches(path, applies):
         counts.update(apply_uniform=1, apply_uniform_pap=applies - 1, cg_update=applies - 1)
     elif path == "B_fused":
         counts.update(apply_uniform=1, apply_uniform_pap=applies - 1)
+    elif path == "BiCGStab":
+        # three unfused reduced applies an iteration (applies = 1 + 3 passes)
+        counts.update(moments=applies, expand=applies, apply_reduced=applies)
     else:
         counts.update(apply_uniform=applies)
     return counts
@@ -945,14 +986,18 @@ def main() -> None:
         del cls_s
         before = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        _, st, launches = drive(f"phase 14 {label} armadillo_melt_si {N_SI}^3 tile {T}", p_s, tiled, (grid_si, scene_si))
+        vel_s, st, launches = drive(f"phase 14 {label} armadillo_melt_si {N_SI}^3 tile {T}", p_s, tiled,
+                                    (grid_si, scene_si))
         peak = torch.cuda.max_memory_allocated()
         check_launches(label, f"phase 14 {label}", st, launches, record=False)
         print(f"phase 14 {label}: n_regions {st['n_regions']} (the JAX suite's TPU record: {JAX_REGIONS[label]}); "
               f"setup (weights, classify, assemble) {t_set:.3f} s; ms per apply of the step without that setup "
-              f"{1e3 * (st['seconds'] - t_set) / st['operator_applies']:.4f}; peak device memory in the step "
-              f"{peak / 2**30:.3f} GiB, in its setup alone {peak_set / 2**30:.3f} GiB ({before / 2**30:.3f} GiB "
-              f"held before them)", flush=True)
+              f"{1e3 * (st['seconds'] - t_set) / st['operator_applies']:.4f}; capture {st['capture_seconds']:.3f} s; "
+              f"peak device memory in the step {peak / 2**30:.3f} GiB, in its setup alone {peak_set / 2**30:.3f} GiB "
+              f"({before / 2**30:.3f} GiB held before them)", flush=True)
+        if label == "S16":
+            s16 = (vel_s, st, peak, t_set)  # phase 17 holds the cropped solve against it
+        del vel_s
     p32t = params(torch.float32, 1e-5, 12000, fuse_pap=True, do_tile=True, tile_size=TILE_8)
     print(f"phase 14 tiled {N_CPU}^3 tile {TILE_8}, card and CPU:", flush=True)
     agree(f"phase 14 tiled {N_CPU}^3 tile {TILE_8} velocities, card against CPU", step_32("cuda", p32t),
@@ -1133,6 +1178,238 @@ def main() -> None:
         frames32[where] = [t.double().cpu() for t in f32_.velocity + (f32_.surface_sdf,)]
     agree(f"phase 16 frame {N_CPU}^3 velocities, card against CPU", frames32["cuda"][:3], frames32["cpu"][:3])
     agree(f"phase 16 frame {N_CPU}^3 surface SDF, card against CPU", frames32["cuda"][3:], frames32["cpu"][3:])
+
+    # -- phase 17: the cropped solve (domain.solve_cropped) on
+    # armadillo_melt_si 256^3, the JAX suite's config 23, against S16
+    from polystokes_tpu_torch import domain
+
+    p_c = solver.sample_density(scene_si, p_t)
+    bbox = domain.active_bbox(scene_si, p_c)
+    if bbox is None:
+        fail("phase 17: armadillo_melt_si 256^3 gives no crop")
+    grid_c, scene_c = domain.crop_scene(grid_si, scene_si, *bbox)
+    solver.check_pallas(grid_c, scene_c, p_c)
+    del scene_c
+    print(f"phase 17 crop of armadillo_melt_si {N_SI}^3: lo {bbox[0]} hi {bbox[1]} res {grid_c.res} (the JAX suite's "
+          f"record: {JAX_CROP['res']}), {100.0 * (grid_c.res[0] * grid_c.res[1] * grid_c.res[2]) / N_SI ** 3:.1f} % "
+          f"of the box", flush=True)
+    crops = []
+    for run in ("warm", "timed 1", "timed 2"):
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        vel_c, valid_c, st = domain.solve_cropped(grid_si, scene_si, p_c)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, peak = dict(pa.LAUNCHES), torch.cuda.max_memory_allocated()
+        print(f"phase 17 C16 cropped {run}: {seconds:.3f} s, iterations {st['iterations']}, error {st['error']:.3e}, "
+              f"converged {st['converged']}, boundary_active {st['boundary_active']}, n_regions {st['n_regions']}, "
+              f"applies {st['operator_applies']}, loop passes {st['loop_passes']}, ms per apply (solve wall / "
+              f"applies) {1e3 * seconds / st['operator_applies']:.4f}, capture {st['capture_seconds']:.3f} s, peak "
+              f"device memory {peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB held before), crop {st['crop']}",
+              flush=True)
+        if not (st["converged"] and st["error"] < 1e-3 and st["boundary_active"] == 0 and not st["interrupted"]):
+            fail(f"phase 17 cropped {run} did not converge cleanly: {st}")
+        if st["crop"]["res"] != grid_c.res:
+            fail(f"phase 17 cropped {run}: box {st['crop']}, expected {bbox}")
+        st["ms_per_apply"], st["seconds"] = 1e3 * seconds / st["operator_applies"], seconds
+        check_launches("C16", f"phase 17 cropped {run}", st, launches, record=run != "warm")
+        crops.append((vel_c, valid_c, st, peak))
+    (v1, _, c1, peak1), (v2, _, c2, _) = crops[1], crops[2]
+    check_repeat("phase 17 cropped", v1, c1, v2, c2)
+    vel_s16, st16, peak16, t_set16 = s16
+    for key in ("n_regions", "n_pressures", "n_active_velocities", "n_stresses"):
+        if c1[key] != st16[key]:
+            fail(f"phase 17: {key} {c1[key]} cropped against {st16[key]} uncropped")
+    lo, hi = bbox
+    vmax = max(float(c.abs().max()) for c in vel_s16)
+    d_in, same_out, valid_out = 0.0, True, False
+    for a in range(3):
+        inside = tuple(slice(lo[i], hi[i] + (i == a)) for i in range(3))
+        d_in = max(d_in, float((v1[a][inside] - vel_s16[a][inside]).abs().max()))
+        outside = torch.ones(v1[a].shape, dtype=torch.bool, device=dev)
+        outside[inside] = False
+        same_out &= torch.equal(v1[a][outside], scene_si.velocity[a][outside])
+        valid_out |= bool(crops[1][1][a][outside].any())
+    print(f"phase 17 cropped against S16: iterations {c1['iterations']} and {c2['iterations']} (S16 {st16['iterations']}, "
+          f"the JAX record {JAX_CROP['iterations']}), n_regions {c1['n_regions']} (S16 {st16['n_regions']}), solve "
+          f"seconds {c1['seconds']:.3f} and {c2['seconds']:.3f} (S16 step {st16['seconds']:.3f}), ms per apply "
+          f"{c1['ms_per_apply']:.4f} and {c2['ms_per_apply']:.4f} (S16 {st16['ms_per_apply']:.4f}; without its setup "
+          f"{1e3 * (st16['seconds'] - t_set16) / st16['operator_applies']:.4f}), capture {c1['capture_seconds']:.3f} "
+          f"and {c2['capture_seconds']:.3f} s (S16 {st16['capture_seconds']:.3f}), peak device memory "
+          f"{peak1 / 2**30:.3f} GiB (S16 {peak16 / 2**30:.3f}); velocities inside the box max|dv| {d_in:.3e} max|v| "
+          f"{vmax:.3e} rel {d_in / vmax:.3e}; outside equal to the input {same_out}, valid there {valid_out}",
+          flush=True)
+    if not same_out or valid_out:
+        fail("phase 17: outside the box the velocity is not the input's or a face is valid")
+    del crops, v2, vel_c, valid_c
+    # one solution through both systems: the cropped system's own CG in
+    # f32 (step's loop, which solve_chunked's segments repeat bit for bit),
+    # then its x in fp64 through the cropped system and, embedded, through
+    # the full-domain one: the residual b - A x restricted to the box and
+    # the write-back inside it.  In fp64, because the apply's f32 rounding
+    # follows its intermediate terms (the moments reach 5e6 on this scene),
+    # not its output; the two systems differ only in the order of their
+    # region sums
+    import dataclasses
+
+    from polystokes_tpu_torch import krylov
+
+    box = (slice(None),) + tuple(slice(lo[i], hi[i]) for i in range(3))
+    grid_c, scene_c = domain.crop_scene(grid_si, scene_si, lo, hi)
+    cls_c, asm_c = solver._setup(grid_c, scene_c, p_c)
+    apply_c, dot_c, upd_c, pre_c, b_c, x0_c = solver._build_krylov_system(grid_c, cls_c, asm_c, scene_c, p_c)
+    res_c = krylov.pcg(apply_c, b_c, x0_c, pre_c, tol=p_c.tolerance, max_iters=p_c.max_iterations, apply_dot=dot_c,
+                       fused_update=upd_c)
+    wv_c = solver._write_back(grid_c, scene_c, p_c, cls_c, asm_c, res_c)[0]
+    # kernels 1-5 at the box's shape, against their twins
+    coeffs_c = pa.pack_coeffs(asm_c, cls_c)
+    alg_c, red_c = solver._region_algebra_packed(grid_c, cls_c, asm_c, p_c, effective_max_regions(grid_c, p_c))
+    xr = (torch.randn((7,) + grid_c.res, generator=gen, device=dev) * pa.packed_masks(cls_c, torch.float32)).contiguous()
+    mom_c = pa.moments_packed_plain(xr, coeffs_c, TILE)
+    v_alg = alg_c(mom_c)
+    u_c = pa.expand_packed_plain(v_alg, red_c, TILE)
+    og_c = pa.grid_mom_pap_packed_plain(xr, coeffs_c, TILE)[0]
+    at = f"at the box's {grid_c.res[0]}x{grid_c.res[1]}x{grid_c.res[2]} (phase 17)"
+    compare("moments", pa.moments_packed(xr, coeffs_c, TILE), mom_c, f"moments {at}")
+    compare("expand", pa.expand_packed(v_alg, red_c, TILE), u_c, f"expand {at}")
+    compare("apply_reduced", pa.apply_reduced_packed(xr, coeffs_c, u_c),
+            pa.apply_reduced_packed_plain(xr, coeffs_c, u_c), f"apply_reduced {at}")
+    compare("grid_mom_pap", pa.grid_mom_pap_packed(xr, coeffs_c, TILE), pa.grid_mom_pap_packed_plain(xr, coeffs_c, TILE),
+            f"grid_mom_pap {at}")
+    compare("finish", pa.finish_packed(coeffs_c, og_c, u_c), pa.finish_packed_plain(coeffs_c, og_c, u_c), f"finish {at}")
+    del coeffs_c, alg_c, red_c, xr, mom_c, v_alg, u_c, og_c
+    same_run = all(torch.equal(wv_c[a], v1[a][tuple(slice(lo[i], hi[i] + (i == a)) for i in range(3))])
+                   for a in range(3))
+    x_c = res_c.x.double()
+    del apply_c, dot_c, upd_c, pre_c, x0_c, b_c, cls_c, asm_c, wv_c
+    p64c = p_c.replace(dtype=torch.float64)
+
+    def through(g_, sc_, x):
+        """(b - A x, max(|A x|, |b|), the write-back velocities) of x in the fp64 system of g_, sc_."""
+        sc_ = dataclasses.replace(sc_, **{f.name: (tuple(t.double() for t in v) if isinstance(v, tuple) else v.double())
+                                          for f in dataclasses.fields(sc_)
+                                          if (v := getattr(sc_, f.name)) is not None})
+        cls_, asm_ = solver._setup(g_, sc_, p64c)
+        apply_, _, _, _, b_, _ = solver._build_krylov_system(g_, cls_, asm_, sc_, p64c)
+        ax = apply_(x)
+        vel_ = solver._write_back(g_, sc_, p64c, cls_, asm_, res_c._replace(x=x))[0]
+        return b_ - ax, max(float(ax.abs().max()), float(b_.abs().max())), vel_
+
+    r_c, r_scale, wv_c = through(grid_c, scene_c, x_c)
+    x_f = torch.zeros((7,) + grid_si.res, dtype=torch.float64, device=dev)
+    x_f[box] = x_c
+    r_f, _, wv_f = through(grid_si, scene_si, x_f)
+    d_r = float((r_f[box] - r_c).abs().max())
+    r_f[box] = 0.0
+    d_r_out = float(r_f.abs().max())
+    d_wb = max(float((wv_f[a][tuple(slice(lo[i], hi[i] + (i == a)) for i in range(3))] - wv_c[a]).abs().max())
+               for a in range(3))
+    wmax = max(float(c.abs().max()) for c in wv_c)
+    del x_c, x_f, r_c, r_f, wv_c, wv_f, res_c, scene_c
+    print(f"phase 17 one solution through both systems: the cropped CG's velocities (f32) bit-equal to the timed "
+          f"run's {same_run}; in fp64, residual b - A x of the full-domain system against the cropped one's inside "
+          f"the box max|diff| {d_r:.3e}, outside it max {d_r_out:.3e}, max(|A x|, |b|) {r_scale:.3e} (rel "
+          f"{d_r / r_scale:.3e}); write-back inside the box max|dv| {d_wb:.3e} max|v| {wmax:.3e} (rel "
+          f"{d_wb / wmax:.3e})", flush=True)
+    if not same_run:
+        fail("phase 17: the cropped system's CG differs from solve_cropped's")
+    if not (d_r <= CROP_RTOL * r_scale and d_r_out <= CROP_RTOL * r_scale):
+        fail(f"phase 17: the cropped operator or right-hand side differs from the full one's: {d_r}, {d_r_out}")
+    if not d_wb <= CROP_RTOL * wmax:
+        fail(f"phase 17: the cropped write-back differs from the full one's: {d_wb} > {CROP_RTOL} * {wmax}")
+    # how far tol 1e-3 resolves the velocities at this scene: S16 and the
+    # cropped solve again at tol 1e-5 (each 1e-3 solve against them)
+    p5 = p_c.replace(tolerance=1e-5)
+    v_f5, _, s_f5 = solver.step(grid_si, scene_si, p5)
+    v_c5, _, s_c5 = domain.solve_cropped(grid_si, scene_si, p5)
+
+    def d_box(va, vb):
+        return max(float((va[a][tuple(slice(lo[i], hi[i] + (i == a)) for i in range(3))] -
+                          vb[a][tuple(slice(lo[i], hi[i] + (i == a)) for i in range(3))]).abs().max())
+                   for a in range(3)) / vmax
+
+    print(f"phase 17 at tol 1e-5: S16 {s_f5['iterations']} iterations (converged {s_f5['converged']}), cropped "
+          f"{s_c5['iterations']} (converged {s_c5['converged']}); inside the box, over max|v| of S16: cropped "
+          f"against S16 {d_box(v_c5, v_f5):.3e} at tol 1e-5 ({d_in / vmax:.3e} at 1e-3); S16 at 1e-3 against S16 at "
+          f"1e-5 {d_box(vel_s16, v_f5):.3e}; cropped at 1e-3 against S16 at 1e-5 {d_box(v1, v_f5):.3e}", flush=True)
+    del v1, v_f5, v_c5, vel_s16, s16
+
+    # -- phase 18: the other solvers.  At 32^3 on the card against the CPU
+    # port in fp64 (in f32 this BiCGStab meets its tol-1e-5 test only by
+    # letting x grow, and this MINRES overflows within 10 iterations):
+    # BICGSTAB to tol 1e-5, MINRES and the fallback at a fixed count
+    from polystokes_tpu_torch import SolverType
+
+    p64 = params(torch.float64, 1e-5, 5000, fuse_pap=True)
+    cases = (("BICGSTAB", p64.replace(solver_type=SolverType.BICGSTAB), True),
+             ("MINRES", p64.replace(solver_type=SolverType.MINRES, max_iterations=20), False),
+             ("fallback", p64.replace(bicgstab_fallback=True, max_iterations=20), False))
+    for label, p, converges in cases:
+        out = {}
+        for where in ("cuda", "cpu"):
+            g32, s32 = honey_coil(n=N_CPU, dtype=torch.float64, device=where)
+            t0 = time.perf_counter()
+            v32, _, st32 = solver.step(g32, s32, p)
+            print(f"phase 18 {label} {N_CPU}^3 fp64 on {where}: {time.perf_counter() - t0:.2f} s, iterations "
+                  f"{st32['iterations']}, error {st32['error']:.3e}, converged {st32['converged']}, applies "
+                  f"{st32['operator_applies']}", flush=True)
+            if st32["converged"] != converges or not all(bool(torch.isfinite(c).all()) for c in v32):
+                fail(f"phase 18 {label} on {where}: converged {st32['converged']} (expected {converges}) or not finite")
+            out[where] = [c.cpu() for c in v32]
+        agree(f"phase 18 {label} {N_CPU}^3 velocities, card against CPU", out["cuda"], out["cpu"])
+    # one BICGSTAB step at full width, f32 as the main path and fp64: the
+    # unfused reduced apply, three an iteration (in f32 this BiCGStab has
+    # broken down to NaN by its 5000th iteration at 128^3; printed, not held)
+    for dtype, label in ((torch.float32, "f32"), (torch.float64, "fp64")):
+        g_b, s_b = (grid, scene) if dtype == torch.float32 else honey_coil(n=N_MAIN, dtype=dtype, device=dev)
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v_b, _, st_b = solver.step(g_b, s_b, p_a.replace(solver_type=SolverType.BICGSTAB, max_iterations=5000,
+                                                         dtype=dtype))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(pa.LAUNCHES)
+        vmax_b = max(float(c.abs().max()) for c in v_b)
+        print(f"phase 18 BICGSTAB {N_MAIN}^3 {label}: {seconds:.3f} s, iterations {st_b['iterations']}, error "
+              f"{st_b['error']:.3e}, converged {st_b['converged']}, max|v| {vmax_b:.4e}, applies "
+              f"{st_b['operator_applies']}, loop passes {st_b['loop_passes']}, ms per apply "
+              f"{1e3 * seconds / st_b['operator_applies']:.4f}, launches moments {launches['moments']} expand "
+              f"{launches['expand']} apply_reduced {launches['apply_reduced']}", flush=True)
+        want = expected_launches("BiCGStab", 1 + 3 * st_b["loop_passes"])
+        if launches != want:
+            fail(f"phase 18 BICGSTAB {N_MAIN}^3 {label}: launches {launches}, expected {want}")
+        if dtype == torch.float32:
+            for name in ("moments", "expand", "apply_reduced"):
+                table[name]["launches_by_path"]["BiCGStab"] = launches[name]
+        del v_b, g_b, s_b
+
+    # -- phase 19: the CLI end to end on the card, each run a process of its own
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck.npz")
+        base = ["--scene", "honey_coil", "--n", "64"]
+        runs = (("default", base + ["--steps", "2", "--checkpoint", ck], "step", (0, 1)),
+                ("resume", ["--resume", ck, "--steps", "1"], "step", (2,)),
+                ("crop chunked", base + ["--crop", "--chunked"], "step", (0,)),
+                ("sim", base + ["--sim", "--steps", "2"], "frame", (0, 1)))
+        for label, argv, word, ks in runs:
+            t0 = time.perf_counter()
+            res = subprocess.run([sys.executable, "-m", "polystokes_tpu_torch.run", *argv], cwd=here,
+                                 capture_output=True, text=True, timeout=300, check=False)
+            lines = [ln for ln in res.stdout.splitlines() if ln.startswith(f"{word} ")]
+            print(f"phase 19 CLI {label} (python -m polystokes_tpu_torch.run {' '.join(argv)}): rc {res.returncode}, "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            for ln in lines:
+                print(f"  {ln}", flush=True)
+            if res.returncode != 0:
+                fail(f"phase 19 CLI {label} exited with {res.returncode}: {res.stderr[-2000:]}")
+            if [ln.split(":")[0] for ln in lines] != [f"{word} {k}" for k in ks] or \
+                    not all("converged=True" in ln for ln in lines):
+                fail(f"phase 19 CLI {label}: expected converged lines {word} {ks}, got {lines}")
 
     for name, entry in table.items():
         if MAIN_PATH[name] is None:

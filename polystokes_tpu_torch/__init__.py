@@ -3,7 +3,8 @@
 The port of ``polystokes_tpu`` (JAX / Pallas), which stays the reference.
 It runs one implicit Stokes ``step`` on the tiled reduced configuration
 (the default: tile 16, padding 2), the untiled cube-region one or the
-uniform one, CELL_ARROW preconditioned CG, on the packed kernel path::
+uniform one, CELL_ARROW preconditioned CG (or BiCGStab or MINRES), on
+the packed kernel path::
 
     from polystokes_tpu_torch import SolverParams, step
     from polystokes_tpu_torch.scenes.builders import honey_coil
@@ -15,7 +16,9 @@ interrupted, timed out and resumed from a state file, as the JAX package's.
 On the card the CG iteration is replayed from a CUDA graph (``krylov``).
 ``sim.simulate`` runs frames of gravity, ``step`` and advection, as the
 JAX package's frame loop; ``device_warm_start`` starts each solve from
-the old velocity.
+the old velocity.  ``domain.solve_cropped`` solves on the liquid's
+bounding box, ``io.checkpoint`` saves and loads scenes in the JAX
+package's format, and ``python -m polystokes_tpu_torch.run`` is the CLI.
 Importing the package turns TF32 off (``precision.py``).
 """
 from .config import BasisOrder, MatrixScheme, PreconditionerType, SolverParams, SolverType

@@ -4,7 +4,9 @@ The same schema as ``polystokes_tpu.config``: the enums, the reference
 constants and one frozen ``SolverParams`` with every field, the dtype as a
 torch dtype.  The port implements these families on the packed kernel
 path with CELL_ARROW, REGION_ARROW, DIAGONAL or IDENTITY preconditioned
-CG:
+CG (with JAX's BiCGStab fallback when CG does not converge, on by
+default as in JAX), or with unpreconditioned BiCGStab or MINRES
+(``solver_type``):
 
 * the tiled reduced step (``do_reduced_regions=True``, ``do_tile=True``
   with ``tile_padding >= 1``, the JAX default): one region per tile cube
@@ -22,8 +24,8 @@ QUADRATIC, the default, or AFFINE, the CLI's ``--affine``).  A field set
 to a value outside these families
 raises ``NotImplementedError`` naming the ROADMAP.md item that ports it;
 nothing is ignored silently.  Where the JAX default lies outside them
-(``preconditioner``, ``bicgstab_fallback``, ``use_pallas``) the port's
-default is the supported value.
+(``preconditioner``, ``use_pallas``) the port's default is the supported
+value.
 """
 from __future__ import annotations
 
@@ -78,10 +80,10 @@ _UNSUPPORTED = (
     ("cube_regions", (True,), "Queue 1 item 6 (segmented general regions)"),
     ("cc_host_callback", (False,), "Queue 1 item 3 (host connected components)"),
     ("matrix_scheme", (MatrixScheme.PRESSURE_STRESS,), "Queue 1 item 13 (host explicit schemes)"),
-    ("solver_type", (SolverType.PCG_MATRIX_VECTOR_PRODUCTS,), "Queue 1 item 11 (other solvers)"),
+    ("solver_type", (SolverType.PCG_MATRIX_VECTOR_PRODUCTS, SolverType.BICGSTAB, SolverType.MINRES),
+     "Queue 1 item 13 (host explicit schemes)"),
     ("preconditioner", (PreconditionerType.CELL_ARROW, PreconditionerType.REGION_ARROW, PreconditionerType.DIAGONAL,
                         PreconditionerType.IDENTITY), "Queue 1 item 15 (multigrid)"),
-    ("bicgstab_fallback", (False,), "Queue 1 item 11 (BiCGStab fallback)"),
     ("deflation", (False,), "Queue 1 item 15 (deflation)"),
     ("coeff_bf16", (False,), "Queue 1 item 15 (bf16 coefficients)"),
     ("use_pallas", (True,), "Queue 1 item 7 (the unpacked apply)"),
@@ -132,7 +134,7 @@ class SolverParams:
     matrix_scheme: MatrixScheme = MatrixScheme.PRESSURE_STRESS
     solver_type: SolverType = SolverType.PCG_MATRIX_VECTOR_PRODUCTS
     preconditioner: PreconditionerType = PreconditionerType.CELL_ARROW
-    bicgstab_fallback: bool = False
+    bicgstab_fallback: bool = True
     deflation: bool = False
     deflation_tile: int = 0
     fuse_pap: bool = True

@@ -10,6 +10,10 @@ leaves the carry unchanged, so the host reads ``done`` only at a poll,
 every ``POLL_PASSES`` passes and at the segment's bound.  On the card the
 body is captured as CUDA graphs and replayed; on the CPU it runs eagerly.
 Both run the same ops in the same order, so the two are bit-equal.
+
+``bicgstab`` (PCG's fallback), ``minres`` and ``flex_pcg`` are the JAX
+package's other solvers, with its semantics and quirks, run the same way
+without a CUDA graph.
 """
 from __future__ import annotations
 
@@ -254,3 +258,142 @@ def pcg(apply_A: Callable, b, x0, precond: Callable = None, tol: float = 1e-3, m
     loop = PCGLoop(apply_A, precond, tol=tol, max_iters=max_iters, apply_dot=apply_dot, fused_update=fused_update,
                    graph=graph)
     return pcg_result(loop.segment(carry), loop.passes)
+
+
+# ---------------------------------------------------------------------------
+# The other solvers: flexible PCG, BiCGStab (PCG's fallback) and MINRES.
+# Each keeps its state on the vectors' device and runs passes of JAX's loop
+# body gated by ``done | (k >= max_iters)``: a gated pass computes the body
+# and keeps the old state (``torch.where``), so passes past convergence
+# change nothing and the host reads ``done`` only every POLL_PASSES passes.
+# ---------------------------------------------------------------------------
+
+def _gated_loop(body: Callable, state: tuple, max_iters: int):
+    """(final state, passes): ``body(state) -> state`` (JAX's while-loop
+    body) from ``state``, whose last three entries are k (int32), rre and
+    done, until done or k = max_iters.  The host reads k and done once at
+    the start and done after each block of at most POLL_PASSES passes."""
+    k0, done = int(state[-3]), bool(state[-1])
+    left = 0 if done else max_iters - k0
+    passes = 0
+    while left > 0:
+        n = min(POLL_PASSES, left)
+        for _ in range(n):
+            gate = state[-1] | (state[-3] >= max_iters)
+            state = tuple(torch.where(gate, old, new) for old, new in zip(state, body(state)))
+        passes += n
+        left -= n
+        if left > 0 and bool(state[-1]):
+            break
+    return state, passes
+
+
+def _xmag_rre(rsnew, x, sqrt_r: bool):
+    """The reference's rre of these solvers: min(rsnew, r / |x|), with r =
+    sqrt(rsnew) (BiCGStab, MINRES) or rsnew (flex_pcg), |x| = sqrt(x.x)."""
+    xmag = torch.sqrt(_dot(x, x))
+    num = torch.sqrt(rsnew) if sqrt_r else rsnew
+    return torch.minimum(rsnew, torch.where(xmag > 0, num / torch.where(xmag > 0, xmag, 1.0), rsnew))
+
+
+def _scalars(b):
+    """(k = 0 int32, rre = inf, done = False) on b's device, in b's dtype."""
+    k = torch.zeros((), dtype=torch.int32, device=b.device)
+    return k, torch.full((), float("inf"), dtype=b.dtype, device=b.device), torch.zeros((), dtype=torch.bool,
+                                                                                         device=b.device)
+
+
+def flex_pcg(apply_A: Callable, b, x0, precond: Callable = None, tol: float = 1e-3,
+             max_iters: int = 5000) -> KrylovResult:
+    """Flexible PCG with the Polak-Ribiere beta (flex_pcg, pcg.h:81-132),
+    as the JAX package's: its convergence test is rre = min(||r||^2,
+    ||r||^2 / ||x||) < tol, the reference's literally; the error returned
+    is sqrt(rre)."""
+    if precond is None:
+        precond = lambda r: r  # noqa: E731
+    r = b - apply_A(x0)
+    z = precond(r)
+    k, rre0, _ = _scalars(b)
+    done = _dot(r, r) == 0
+    rre0 = torch.where(done, torch.zeros_like(rre0), rre0)
+
+    def body(st):
+        x, r, p, zold, rold, k, _, _ = st
+        Ap = apply_A(p)
+        pAp = _dot(p, Ap)
+        alpha = _dot(rold, zold) / torch.where(pAp != 0, pAp, 1.0)
+        x = alpha * p + x
+        r = -alpha * Ap + r
+        rre = _xmag_rre(_dot(r, r), x, sqrt_r=False)
+        z = precond(r)
+        beta = _dot(r, z - zold) / _dot(rold, zold)
+        return x, r, beta * p + z, z, r, k + 1, rre, rre < tol
+
+    (x, *_, k, rre, done), passes = _gated_loop(body, (x0, r, z, z, r, k, rre0, done), max_iters)
+    k, done = int(k), bool(done)
+    return KrylovResult(x=x, iterations=max(k - 1, 0) if done else k, error=float(torch.sqrt(torch.clamp(rre, min=0.0))),
+                        converged=done, applies=1 + k, passes=passes)
+
+
+def bicgstab(apply_A: Callable, b, x0, tol: float = 1e-3, max_iters: int = 5000) -> KrylovResult:
+    """BiCGStab, the semantics of bicgstab_external_matrix_A (pcg.h:135-200)
+    as the JAX package has them: the explicit residual err = b - A x every
+    iteration (three applies an iteration), rre = min(||err||^2,
+    ||err|| / ||x||) < tol, the error returned is rre itself, and the
+    iterations k - 1 when done."""
+    r = b - apply_A(x0)
+    rhat = r
+    zeros = torch.zeros_like(b)
+    one = torch.ones((), dtype=b.dtype, device=b.device)
+    k, rre0, done0 = _scalars(b)
+
+    def body(st):
+        x, r, p, v, rho_old, alpha, omega, k, _, _ = st
+        rho = _dot(rhat, r)
+        beta = (rho / rho_old) * (alpha / omega)
+        p = beta * (-omega * v + p) + r
+        v = apply_A(p)
+        alpha = rho / _dot(rhat, v)
+        h = alpha * p + x
+        s = -alpha * v + r
+        t = apply_A(s)
+        omega = _dot(t, s) / _dot(t, t)
+        x = omega * s + h
+        err = b - apply_A(x)
+        rre = _xmag_rre(_dot(err, err), x, sqrt_r=True)
+        return x, -omega * t + s, p, v, rho, alpha, omega, k + 1, rre, rre < tol
+
+    st, passes = _gated_loop(body, (x0, r, zeros, zeros, one, one, one, k, rre0, done0), max_iters)
+    x, k, rre, done = st[0], int(st[-3]), float(st[-2]), bool(st[-1])
+    return KrylovResult(x=x, iterations=k - 1 if done else k, error=rre, converged=done, applies=1 + 3 * k,
+                        passes=passes)
+
+
+def minres(apply_A: Callable, b, x0, tol: float = 1e-3, max_iters: int = 5000) -> KrylovResult:
+    """MINRES, the variant of minres_external_matrix_A (pcg.h:203-263) as
+    the JAX package has it: one apply an iteration after two at the start,
+    rre = min(||r||^2, ||r|| / ||x||) < tol, beta2 = 0 while k <= 1, the
+    error returned is rre itself and the iterations k."""
+    r = b - apply_A(x0)
+    s1 = apply_A(r)
+    k, rre0, done0 = _scalars(b)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+
+    def body(st):
+        x, r, p1n, s1n, p2, s2, k, _, _ = st  # (p0, s0) of the last pass are this pass's (p1, s1)
+        ss = _dot(s1n, s1n)
+        alpha = _dot(r, s1n) / ss
+        x = alpha * p1n + x
+        r = -alpha * s1n + r
+        rre = _xmag_rre(_dot(r, r), x, sqrt_r=True)
+        s0 = apply_A(s1n)
+        beta1 = _dot(s0, s1n) / ss
+        p0 = -beta1 * p1n + s1n
+        s0 = -beta1 * s1n + s0
+        beta2 = torch.where(k > 1, _dot(s0, s2) / _dot(s2, s2), zero)
+        return x, r, -beta2 * p2 + p0, -beta2 * s2 + s0, p1n, s1n, k + 1, rre, rre < tol
+
+    st, passes = _gated_loop(body, (x0, r, r, s1, r, s1, k, rre0, done0), max_iters)
+    k = int(st[-3])
+    return KrylovResult(x=st[0], iterations=k, error=float(st[-2]), converged=bool(st[-1]), applies=2 + k,
+                        passes=passes)

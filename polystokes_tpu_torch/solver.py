@@ -28,7 +28,7 @@ import torch
 from . import krylov
 from .basis import monomial_matrix, monomial_shift_matrix, n_monomials
 from .classify import REDUCED, SOLID, UNSOLVED, Classification, classify, effective_max_regions, is_active
-from .config import MINWEIGHT, PreconditionerType, SolverParams
+from .config import MINWEIGHT, PreconditionerType, SolverParams, SolverType
 from .grid import EDGE_OFFSET_AXES, Grid
 from .operators import (
     Assembled,
@@ -636,15 +636,37 @@ def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
     """One Stokes solve.  Returns (new_velocity, valid_masks, stats).
     ``initial_guess`` (optional PTau) seeds the Krylov solve, as in the JAX
     package.  The packed kernels need ``tile_size`` to divide every
-    resolution."""
+    resolution.
+
+    ``solver_type`` picks the solver as in the JAX package: preconditioned
+    CG, then with ``bicgstab_fallback`` BiCGStab from the same x0 when CG
+    did not converge (a host branch where JAX has ``lax.cond``); or
+    BiCGStab or MINRES alone, unpreconditioned, on the packed apply
+    (kernels 1-3, or 7 on the uniform step).  After a fallback the
+    iterations and error are BiCGStab's, ``operator_applies`` and
+    ``loop_passes`` the sum of both solves'."""
     cls, asm = _setup(grid, scene, params)
+    apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params,
+                                                                                 initial_guess)
+    capture = 0.0
+    tol, max_iters = params.tolerance, params.max_iterations
     if not params.do_solve:
-        x0_K = _build_krylov_system(grid, cls, asm, scene, params, initial_guess)[-1]
         res = krylov.KrylovResult(x=x0_K, iterations=0, error=0.0, converged=True, applies=0, passes=0)
-        return _write_back(grid, scene, params, cls, asm, res)
-    carry, loop = _chunk_init(grid, scene, params, cls, asm, initial_guess)
-    new_vel, valid, stats = _chunk_finalize(grid, scene, params, cls, asm, loop.segment(carry), loop.passes)
-    stats["capture_seconds"] = loop.capture_seconds or 0.0  # the CUDA graphs' capture, 0 where none
+    elif params.solver_type == SolverType.PCG_MATRIX_VECTOR_PRODUCTS:
+        loop = krylov.PCGLoop(apply_K, precond, tol=tol, max_iters=max_iters, apply_dot=apply_dot,
+                              fused_update=fused_update)
+        res = krylov.pcg_result(loop.segment(krylov.pcg_init(apply_K, b_K, x0_K, precond)), loop.passes)
+        capture = loop.capture_seconds or 0.0  # the CUDA graphs' capture, 0 where none
+        del loop  # its buffers and graphs, before a fallback allocates its own
+        if params.bicgstab_fallback and not res.converged:
+            fb = krylov.bicgstab(apply_K, b_K, x0_K, tol=tol, max_iters=max_iters)
+            res = fb._replace(applies=res.applies + fb.applies, passes=res.passes + fb.passes)
+    elif params.solver_type == SolverType.BICGSTAB:
+        res = krylov.bicgstab(apply_K, b_K, x0_K, tol=tol, max_iters=max_iters)
+    else:
+        res = krylov.minres(apply_K, b_K, x0_K, tol=tol, max_iters=max_iters)
+    new_vel, valid, stats = _write_back(grid, scene, params, cls, asm, res)
+    stats["capture_seconds"] = capture
     return new_vel, valid, stats
 
 
@@ -664,6 +686,9 @@ def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters:
         (``np.savez``, keys leaf0..leaf6 = x, r, p, rsold, k, rre, done, as
         the JAX package writes them) and resume a killed run from it (same
         scene and params)
+
+    It runs preconditioned CG whatever ``solver_type`` says, with no
+    BiCGStab fallback, as the JAX package's does.
 
     ``POLYSTOKES_VERBOSE=1`` prints each stage.  Returns (new_velocity,
     valid_masks, stats) like ``step``, with ``stats["interrupted"]``."""
@@ -711,4 +736,5 @@ def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters:
 
     new_vel, valid, stats = _chunk_finalize(grid, scene, params, cls, asm, carry, loop.passes)
     stats["interrupted"] = interrupted
+    stats["capture_seconds"] = loop.capture_seconds or 0.0  # as step's
     return new_vel, valid, stats

@@ -27,7 +27,8 @@ def _require_cuda():
 
 def _setup(dtype, **kw):
     grid, scene = honey_coil(n=32, dtype=dtype, device="cuda")
-    params = SolverParams(do_tile=False, dtype=dtype, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000, **kw)
+    params = SolverParams(do_tile=False, dtype=dtype, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
+                          bicgstab_fallback=False, **kw)
     cls, asm = tsolver._setup(grid, scene, params)
     return grid, scene, params, cls, asm
 
@@ -94,7 +95,7 @@ def test_cuda_step_matches_cpu(reduced, fuse_pap):
     """The step on the card (kernels) against the CPU (twins), fp64 32^3."""
     _require_cuda()
     params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
-                          do_reduced_regions=reduced, fuse_pap=fuse_pap)
+                          do_reduced_regions=reduced, fuse_pap=fuse_pap, bicgstab_fallback=False)
     out = {}
     for dev in ("cuda", "cpu"):
         grid, scene = honey_coil(n=32, dtype=torch.float64, device=dev)
@@ -146,7 +147,7 @@ def test_cuda_region_arrow_step_matches_cpu():
     """The REGION_ARROW step (fuse_pap on) on the card against the CPU, fp64 32^3."""
     _require_cuda()
     params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
-                          preconditioner=PreconditionerType.REGION_ARROW)
+                          preconditioner=PreconditionerType.REGION_ARROW, bicgstab_fallback=False)
     out = {}
     for dev in ("cuda", "cpu"):
         grid, scene = honey_coil(n=32, dtype=torch.float64, device=dev)
@@ -202,7 +203,7 @@ def test_cuda_fused_update_step_matches_cpu():
     the CPU, fp64 32^3; every iteration's update is the expanding kernel."""
     _require_cuda()
     params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
-                          fuse_update=True)
+                          fuse_update=True, bicgstab_fallback=False)
     out = {}
     for dev in ("cuda", "cpu"):
         grid, scene = honey_coil(n=32, dtype=torch.float64, device=dev)

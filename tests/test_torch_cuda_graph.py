@@ -34,7 +34,8 @@ def _require_cuda():
 
 
 def _params(**kw):
-    return SolverParams(do_tile=False, dtype=torch.float32, tile_size=16, max_regions=64, tolerance=1e-5, max_iterations=5000, **kw)
+    return SolverParams(do_tile=False, dtype=torch.float32, tile_size=16, max_regions=64, tolerance=1e-5, max_iterations=5000,
+                        bicgstab_fallback=False, **kw)
 
 
 def _pcg(system, graph):

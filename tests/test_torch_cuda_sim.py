@@ -80,7 +80,7 @@ def test_advect_field_gather_card_against_cpu(dtype):
 def test_simulate_frame_card_against_cpu():
     _require_cuda()
     params = SolverParams(dtype=torch.float32, do_tile=True, tile_size=8, tile_padding=2, tolerance=1e-5,
-                          max_iterations=12000, device_warm_start=True)
+                          max_iterations=12000, device_warm_start=True, bicgstab_fallback=False)
     out = {}
     for where in ("cuda", "cpu"):
         grid, scene = honey_coil(n=32, dtype=torch.float32, device=where)

@@ -37,7 +37,7 @@ def _require_cuda():
 
 def _params(dtype, **kw):
     return SolverParams(dtype=dtype, do_tile=True, tile_size=T, tile_padding=2, tolerance=1e-5, max_iterations=5000,
-                        **kw)
+                        bicgstab_fallback=False, **kw)
 
 
 def _case(dtype, basis=BasisOrder.QUADRATIC):

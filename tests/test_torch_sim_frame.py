@@ -57,7 +57,8 @@ def test_beam_sags_over_frames():
     liquid mass falls in z), staying finite and converged."""
     grid, scene = viscous_beam(n=24, dtype=torch.float64, device="cpu", viscosity=5.0, dt=1 / 24)
     params = check_pallas(grid, scene, SolverParams(dtype=torch.float64, do_tile=True, tile_size=8, tile_padding=2,
-                                                    tolerance=1e-5, max_iterations=1500))
+                                                    tolerance=1e-5, max_iterations=1500,
+                                                    bicgstab_fallback=False))
 
     def com_z(s):
         m = (s.surface_sdf < 0).double()
@@ -79,7 +80,7 @@ def test_simulate_chains_frames_with_cfl_substeps():
     and calls back after every frame; equal results, bit for bit."""
     grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
     params = SolverParams(dtype=torch.float64, do_tile=True, tile_size=8, tile_padding=2, max_iterations=30,
-                          device_warm_start=True)
+                          device_warm_start=True, bicgstab_fallback=False)
     seen = []
     out, stats = sim.simulate(grid, scene, params, frames=2, callback=lambda k, s, st: seen.append((k, st)))
     assert [k for k, _ in seen] == [0, 1] and [st["iterations"] for _, st in seen] == [s["iterations"] for s in stats]

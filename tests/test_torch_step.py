@@ -23,7 +23,7 @@ from polystokes_tpu.scenes import builders as jbuilders
 
 from polystokes_tpu_torch import convert
 from polystokes_tpu_torch import step as tstep
-from polystokes_tpu_torch.config import BasisOrder, SolverParams
+from polystokes_tpu_torch.config import BasisOrder, SolverParams, SolverType
 
 torch.set_num_threads(1)
 
@@ -90,7 +90,8 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "pre = set(sys.modules)\n"
         "import polystokes_tpu_torch, polystokes_tpu_torch.convert, polystokes_tpu_torch.scenes.builders\n"
-        "import polystokes_tpu_torch.sim\n"
+        "import polystokes_tpu_torch.sim, polystokes_tpu_torch.domain, polystokes_tpu_torch.run\n"
+        "import polystokes_tpu_torch.io.checkpoint\n"
         "new = set(sys.modules) - pre\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'polystokes_tpu'))\n"
         "assert not bad, bad\n"
@@ -105,7 +106,7 @@ _ITEM = {"tile_padding": r"ROADMAP.md Queue 1 item 7 \(the unpacked apply\)"}
 
 @pytest.mark.parametrize("field, value", [
     ("tile_padding", 0), ("cube_regions", False), ("coeff_bf16", True), ("deflation", True),
-    ("cc_host_callback", True), ("use_pallas", False), ("bicgstab_fallback", True),
+    ("cc_host_callback", True), ("use_pallas", False), ("solver_type", SolverType.EIGEN),
 ])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match=_ITEM.get(field, "ROADMAP.md")):
@@ -113,7 +114,7 @@ def test_unported_options_raise(field, value):
 
 
 @pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions", "fuse_update", "fuse_expand", "do_tile",
-                                   "device_warm_start"])
+                                   "device_warm_start", "bicgstab_fallback"])
 @pytest.mark.parametrize("value", [True, False])
 def test_ported_options_construct(field, value):
     assert getattr(SolverParams(**{field: value}), field) is value
@@ -127,6 +128,10 @@ def test_affine_basis_is_ported():
 
 def test_fuse_pap_defaults_on_as_in_jax():
     assert SolverParams().fuse_pap and JParams().fuse_pap
+
+
+def test_bicgstab_fallback_defaults_on_as_in_jax():
+    assert SolverParams().bicgstab_fallback and JParams().bicgstab_fallback
 
 
 def test_do_tile_defaults_on_as_in_jax():

@@ -101,7 +101,8 @@ def test_density_variable_field_rejected():
 
 def test_density_constant_field_solve_matches_paramless():
     """A constant field gives the step of the same constant_density, bit for bit."""
-    base = SolverParams(dtype=torch.float64, max_iterations=40, do_tile=True, tile_size=8, tile_padding=2)
+    base = SolverParams(dtype=torch.float64, max_iterations=40, do_tile=True, tile_size=8, tile_padding=2,
+                        bicgstab_fallback=False)
     grid, scene, dense = _density_case(2.0)
     with_field = tsolver.sample_density(dense, base)
     assert with_field.constant_density == 2.0
