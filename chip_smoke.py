@@ -86,7 +86,7 @@ Phases (any failed check exits non-zero before the final line):
      iterations), then resumed from it, bit-equal to the whole; with
      max_seconds=0.0 one segment (100 iterations), not converged;
  14. tiled mode (do_tile=True, tile 16, padding 2; the JAX suite's config
-     3): A_t, Path A on honey_coil 128^3, warm and twice timed with phase
+     3): A_t, Path A on honey_coil 128^3, warm and once timed with phase
      4's checks (n_regions beside the TPU record's 152, printed); F_t (A_t
      with fuse_update and fuse_expand) and R_t (A_t with REGION_ARROW), one
      timed step each, converged with their paths' launches; S16 and S8,
@@ -100,7 +100,7 @@ Phases (any failed check exits non-zero before the final line):
  15. the affine basis (BasisOrder.AFFINE, the CLI's --affine), tiled (tile
      16, padding 2) on honey_coil 128^3, f32, tol 1e-3: A_aff (Path A,
      CELL_ARROW, fuse_pap) and F_aff (fuse_update with fuse_expand), each
-     warm and twice timed with phase 4's checks (converged, exact launches
+     warm and once timed with phase 4's checks (converged, exact launches
      of the K = 4 kernels, bit-equal repeats); the CLI test's
      configuration (affine, DIAGONAL, tile 8) at 128^3, one step; and the
      affine 32^3 step on the card against the CPU port (phase 10's bound).
@@ -123,7 +123,7 @@ Phases (any failed check exits non-zero before the final line):
  17. the cropped solve (domain.solve_cropped, the CLI's --crop) on
      armadillo_melt_si 256^3 with S16's parameters (the JAX suite's
      config 23): the box (checked by check_pallas) and its share of the
-     domain, then a warm and two timed solves on it: converged, exact
+     domain, then a warm and a timed solve on it: converged, exact
      launches of A (C16), bit-equal repeats, the DOF and region counts of
      S16, the input velocity outside the box and no valid face there;
      printed beside S16's (phase 14 keeps its velocities and figures):
@@ -146,14 +146,39 @@ Phases (any failed check exits non-zero before the final line):
      port, each within phase 10's bound (fp64: in f32 this BiCGStab meets
      a tol-1e-5 test only by letting x grow, and this MINRES overflows
      within 10 iterations); one BICGSTAB step at 128^3, tol 1e-3, in f32
-     and in fp64 (iterations, converged, seconds, ms per apply) with the
-     launches of kernels 1-3, 1 + 3 passes each;
+     (at most 1500 iterations) and in fp64 (iterations, converged,
+     seconds, ms per apply) with the launches of kernels 1-3, 1 + 3
+     passes each;
  19. the CLI end to end, each run a process of its own: python -m
      polystokes_tpu_torch.run with JAX's default flags on honey_coil 64^3
-     (IDENTITY, BiCGStab fallback) for 2 steps with a checkpoint, resumed
-     for 1 (printing step 2), with --crop --chunked, and with --sim for 2
-     frames: each exits with 0 and prints its step or frame lines with
-     converged=True.
+     (IDENTITY, BiCGStab fallback, the unpacked apply) for 2 steps with a
+     checkpoint (written with use_pallas=False, as the JAX CLI's default
+     writes it), resumed for 1 (printing step 2), with --crop --chunked,
+     with --sim for 2 frames, with --pallas (the packed kernels) and with
+     --profile (profiling.step_instrumented): each exits with 0 and prints
+     its step or frame lines with converged=True;
+ 20. the unpacked apply (use_pallas=False, JAX's default: no hand-written
+     kernel) on honey_coil 128^3, f32, tol 1e-3, CELL_ARROW, each path
+     warm and twice timed with phase 4's checks (converged, error < 1e-3,
+     bit-equal repeats) and 0 launches of every kernel: U_t (A_t
+     unpacked; iterations beside A_t's and the JAX record 3545, ms per
+     apply beside A_t's), U (A unpacked), G (untiled general regions,
+     cube_regions=False: n_regions beside U's) and P0 (tiled, tile_padding
+     0), with each step's peak device memory; the device time of one
+     J-coupling reduce and expand on each (cube-major or segmented); one
+     apply of A's and A_t's systems, unpacked against packed on one x,
+     within 1e-5 of max; the
+     JAX suite's config 19 (honey_coil 64^3, fp64, unpacked, untiled,
+     max_regions 64): converged, iterations beside the JAX record 162;
+ 21. at 32^3, tol 1e-5: the unpacked step with IDENTITY, DIAGONAL,
+     CELL_ARROW and REGION_ARROW, and G, on the card against the CPU port
+     (phase 10's bound); check_pallas on a 16^3 all-liquid box (liquid on
+     the index-0 planes) warns and returns use_pallas=False, and the step
+     then converges with no kernel launched; honey_coil 72^3 at tile 16
+     (which the tile does not divide) with use_pallas=True runs unpacked,
+     converged, no kernel launched.
+Every packed phase checks that check_pallas's fallback did not fire
+(packed_preflight) and that the packed layout takes its configuration.
 Phase 2 also holds the tile-dependent kernels (moments, expand,
 grid_mom_pap, exp_finish_update) against their twins at tile 8 on the
 tiled armadillo_melt_si 256^3 setup of S8, with their device times and
@@ -242,10 +267,13 @@ TILE_8 = 8
 N_SI = 256
 # the JAX suite's TPU records (BENCH_SUITE.json), printed beside ours, not held
 JAX_REGIONS = {"A_t": 152, "S16": 753, "S8": 3542, "C16": 753}
+# and its iteration records of the tiled 128^3 cell and of config 19
+# (single_region_honey_coil_64_f64)
+JAX_ITERS = {"U_t": 3545, "config 19": 162}
 # the JAX suite's record of its cropped config 23 (crop_tiled_armadillo_si_256):
 # iterations and the box's resolution, printed beside ours
 JAX_CROP = {"iterations": 836, "res": (224, 224, 224)}
-FRAMES = 4  # phase 16's frames per run
+FRAMES = 3  # phase 16's frames per run (4 before phases 20-21 took their time)
 
 
 def ptxas_summary(report: str):
@@ -286,13 +314,28 @@ def card_line() -> str:
 
 
 def params(dtype, tol, max_iters, **kw):
-    """The untiled main path's parameters (every path of phases 2-13), with
-    ``kw`` over them (phase 14 sets do_tile=True)."""
-    from polystokes_tpu_torch import SolverParams
+    """The untiled main path's parameters (every path of phases 2-13: the
+    packed kernels, CELL_ARROW, stated, since SolverParams' defaults are
+    the JAX package's IDENTITY and unpacked apply), with ``kw`` over them
+    (phase 14 sets do_tile=True, phase 20 use_pallas=False)."""
+    from polystokes_tpu_torch import PreconditionerType, SolverParams
 
     base = dict(dtype=dtype, do_tile=False, tile_size=TILE, tile_padding=2, max_regions=64, tolerance=tol,
-                max_iterations=max_iters, bicgstab_fallback=False)
+                max_iterations=max_iters, bicgstab_fallback=False, preconditioner=PreconditionerType.CELL_ARROW,
+                use_pallas=True)
     return SolverParams(**{**base, **kw})
+
+
+def packed_preflight(grid, scene, p, label):
+    """solver.check_pallas on a packed phase's scene: its fallback to the
+    unpacked apply must not fire there (boundary_active == 0), or the phase
+    would silently leave the kernels."""
+    from polystokes_tpu_torch import solver
+
+    q = solver.check_pallas(grid, scene, p)
+    if q != p or not solver._use_packed(grid, p):
+        fail(f"{label}: the packed path is not taken (check_pallas returned use_pallas={q.use_pallas})")
+    return q
 
 
 def median_ms(fn, n=20):
@@ -692,19 +735,23 @@ def main() -> None:
     def drive(label, p, n_check=None, case=None):
         """step() on ``case`` (grid, scene), honey_coil 128^3 by default."""
         g, sc = case or (grid, scene)
+        if p.use_pallas and not solver._use_packed(g, p):
+            fail(f"{label}: use_pallas=True but the packed layout does not take this configuration")
         pa.reset_launches()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         vel, _, stats = solver.step(g, sc, p)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         launches = dict(pa.LAUNCHES)
         applies = stats["operator_applies"]
         print(f"{label}: {seconds:.3f} s, iterations {stats['iterations']}, error {stats['error']:.3e}, "
               f"converged {stats['converged']}, boundary_active {stats['boundary_active']}, "
               f"n_regions {stats['n_regions']}, applies {applies}, loop passes {stats['loop_passes']}, "
-              f"ms per apply (step wall / applies) {1e3 * seconds / max(applies, 1):.4f}, launches {launches}",
-              flush=True)
+              f"ms per apply (step wall / applies) {1e3 * seconds / max(applies, 1):.4f}, peak device memory "
+              f"{stats['peak_gib']:.3f} GiB, launches {launches}", flush=True)
         if not (stats["converged"] and stats["error"] < 1e-3 and stats["boundary_active"] == 0):
             fail(f"{label} did not converge cleanly: {stats}")
         if n_check is not None and not n_check(stats["n_regions"]):
@@ -737,7 +784,7 @@ def main() -> None:
         if not (st1["iterations"] == st2["iterations"] and bit_equal):
             fail(f"{label}: two steps on the same inputs differ")
 
-    solver.check_pallas(grid, scene, p_a)
+    packed_preflight(grid, scene, p_a, "phase 4")
     drive(f"phase 4 Path A {N_MAIN}^3 warm", p_a, lambda n: n >= 1)
     vel1, st1, l1 = drive(f"phase 4 Path A {N_MAIN}^3 timed 1", p_a, lambda n: n >= 1)
     vel2, st2, l2 = drive(f"phase 4 Path A {N_MAIN}^3 timed 2", p_a, lambda n: n >= 1)
@@ -958,11 +1005,11 @@ def main() -> None:
 
     # -- phase 14: tiled mode (the JAX suite's config 3 and, at 256^3, 16 and 18)
     p_t = params(torch.float32, 1e-3, 12000, fuse_pap=True, do_tile=True)
-    solver.check_pallas(grid, scene, p_t)
+    packed_preflight(grid, scene, p_t, "phase 14")
     tiled = lambda n: n >= 1  # noqa: E731
-    drive(f"phase 14 A_t {N_MAIN}^3 tile {TILE} warm", p_t, tiled)
-    vel1, sa1, l1 = drive(f"phase 14 A_t {N_MAIN}^3 tile {TILE} timed 1", p_t, tiled)
-    vel2, sa2, l2 = drive(f"phase 14 A_t {N_MAIN}^3 tile {TILE} timed 2", p_t, tiled)
+    # a warm run and one timed, to leave time for phases 20 and 21
+    vel1, sa1, l1 = drive(f"phase 14 A_t {N_MAIN}^3 tile {TILE} warm", p_t, tiled)
+    vel2, sa2, l2 = drive(f"phase 14 A_t {N_MAIN}^3 tile {TILE} timed", p_t, tiled)
     check_launches("A_t", "phase 14 A_t", sa1, l1)
     check_launches("A_t", "phase 14 A_t", sa2, l2)
     check_repeat("phase 14 A_t", vel1, sa1, vel2, sa2)
@@ -1005,12 +1052,11 @@ def main() -> None:
 
     # -- phase 15: the affine basis (the CLI's --affine), tiled as phase 14
     p_aff = p_t.replace(basis=BasisOrder.AFFINE)
-    solver.check_pallas(grid, scene, p_aff)
+    packed_preflight(grid, scene, p_aff, "phase 15")
     aff_steps = {}
     for label, p in (("A_aff", p_aff), ("F_aff", p_aff.replace(fuse_update=True, fuse_expand=True))):
-        drive(f"phase 15 {label} {N_MAIN}^3 tile {TILE} warm", p, tiled)
-        vel1, s1, l1 = drive(f"phase 15 {label} {N_MAIN}^3 tile {TILE} timed 1", p, tiled)
-        vel2, s2, l2 = drive(f"phase 15 {label} {N_MAIN}^3 tile {TILE} timed 2", p, tiled)
+        vel1, s1, l1 = drive(f"phase 15 {label} {N_MAIN}^3 tile {TILE} warm", p, tiled)
+        vel2, s2, l2 = drive(f"phase 15 {label} {N_MAIN}^3 tile {TILE} timed", p, tiled)
         check_launches(label, f"phase 15 {label}", s1, l1)
         check_launches(label, f"phase 15 {label}", s2, l2)
         check_repeat(f"phase 15 {label}", vel1, s1, vel2, s2)
@@ -1044,7 +1090,7 @@ def main() -> None:
         memory after it and its peak.  The solve and the advection are timed
         by wrapping sim.step and sim.advect_field with synchronised host
         clocks for this run."""
-        p = solver.check_pallas(grid, scene, solver.sample_density(scene, p))
+        p = packed_preflight(grid, scene, solver.sample_density(scene, p), f"phase 16 {label}")
         spent = {"step": 0.0, "advect_field": 0.0}
         originals = {name: getattr(sim, name) for name in spent}
 
@@ -1188,13 +1234,13 @@ def main() -> None:
     if bbox is None:
         fail("phase 17: armadillo_melt_si 256^3 gives no crop")
     grid_c, scene_c = domain.crop_scene(grid_si, scene_si, *bbox)
-    solver.check_pallas(grid_c, scene_c, p_c)
+    packed_preflight(grid_c, scene_c, p_c, "phase 17")
     del scene_c
     print(f"phase 17 crop of armadillo_melt_si {N_SI}^3: lo {bbox[0]} hi {bbox[1]} res {grid_c.res} (the JAX suite's "
           f"record: {JAX_CROP['res']}), {100.0 * (grid_c.res[0] * grid_c.res[1] * grid_c.res[2]) / N_SI ** 3:.1f} % "
           f"of the box", flush=True)
     crops = []
-    for run in ("warm", "timed 1", "timed 2"):
+    for run in ("warm", "timed"):
         pa.reset_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1215,9 +1261,9 @@ def main() -> None:
         if st["crop"]["res"] != grid_c.res:
             fail(f"phase 17 cropped {run}: box {st['crop']}, expected {bbox}")
         st["ms_per_apply"], st["seconds"] = 1e3 * seconds / st["operator_applies"], seconds
-        check_launches("C16", f"phase 17 cropped {run}", st, launches, record=run != "warm")
+        check_launches("C16", f"phase 17 cropped {run}", st, launches)
         crops.append((vel_c, valid_c, st, peak))
-    (v1, _, c1, peak1), (v2, _, c2, _) = crops[1], crops[2]
+    (v1, _, c1, peak1), (v2, _, c2, _) = crops[0], crops[1]
     check_repeat("phase 17 cropped", v1, c1, v2, c2)
     vel_s16, st16, peak16, t_set16 = s16
     for key in ("n_regions", "n_pressures", "n_active_velocities", "n_stresses"):
@@ -1232,7 +1278,7 @@ def main() -> None:
         outside = torch.ones(v1[a].shape, dtype=torch.bool, device=dev)
         outside[inside] = False
         same_out &= torch.equal(v1[a][outside], scene_si.velocity[a][outside])
-        valid_out |= bool(crops[1][1][a][outside].any())
+        valid_out |= bool(crops[0][1][a][outside].any())
     print(f"phase 17 cropped against S16: iterations {c1['iterations']} and {c2['iterations']} (S16 {st16['iterations']}, "
           f"the JAX record {JAX_CROP['iterations']}), n_regions {c1['n_regions']} (S16 {st16['n_regions']}), solve "
           f"seconds {c1['seconds']:.3f} and {c2['seconds']:.3f} (S16 step {st16['seconds']:.3f}), ms per apply "
@@ -1368,7 +1414,10 @@ def main() -> None:
         pa.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        v_b, _, st_b = solver.step(g_b, s_b, p_a.replace(solver_type=SolverType.BICGSTAB, max_iterations=5000,
+        # f32 at most 1500 iterations (it broke down to NaN by 5000 when it ran
+        # that far), fp64 to convergence
+        cap = 5000 if dtype == torch.float64 else 1500
+        v_b, _, st_b = solver.step(g_b, s_b, p_a.replace(solver_type=SolverType.BICGSTAB, max_iterations=cap,
                                                          dtype=dtype))
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -1395,7 +1444,9 @@ def main() -> None:
         runs = (("default", base + ["--steps", "2", "--checkpoint", ck], "step", (0, 1)),
                 ("resume", ["--resume", ck, "--steps", "1"], "step", (2,)),
                 ("crop chunked", base + ["--crop", "--chunked"], "step", (0,)),
-                ("sim", base + ["--sim", "--steps", "2"], "frame", (0, 1)))
+                ("sim", base + ["--sim", "--steps", "2"], "frame", (0, 1)),
+                ("pallas", base + ["--pallas"], "step", (0,)),
+                ("profile", base + ["--profile"], "step", (0,)))
         for label, argv, word, ks in runs:
             t0 = time.perf_counter()
             res = subprocess.run([sys.executable, "-m", "polystokes_tpu_torch.run", *argv], cwd=here,
@@ -1410,6 +1461,142 @@ def main() -> None:
             if [ln.split(":")[0] for ln in lines] != [f"{word} {k}" for k in ks] or \
                     not all("converged=True" in ln for ln in lines):
                 fail(f"phase 19 CLI {label}: expected converged lines {word} {ks}, got {lines}")
+
+    # -- phase 20: the unpacked apply (use_pallas=False, JAX's default) at
+    # full width: no hand-written kernel on any of these paths
+    def step_counted(g, sc, p):
+        """(stats, launches) of one step from counters set to 0 before it."""
+        pa.reset_launches()
+        _, _, stats = solver.step(g, sc, p)
+        torch.cuda.synchronize()
+        return stats, dict(pa.LAUNCHES)
+
+    def drive_unpacked(label, p, n_check=None, case=None):
+        vel, st, launches = drive(label, p, n_check, case)
+        if solver._use_packed((case or (grid, scene))[0], p) or any(launches.values()):
+            fail(f"{label}: the unpacked step launched hand-written kernels: {launches}")
+        return vel, st
+
+    unpacked = {"U_t": p_t.replace(use_pallas=False), "U": p_a.replace(use_pallas=False),
+                "G": p_a.replace(use_pallas=False, cube_regions=False),
+                "P0": p_t.replace(use_pallas=False, tile_padding=0)}
+    u_steps = {}
+    for label, p in unpacked.items():
+        drive_unpacked(f"phase 20 {label} {N_MAIN}^3 warm", p, lambda n: n >= 1)
+        vel1, s1 = drive_unpacked(f"phase 20 {label} {N_MAIN}^3 timed 1", p, lambda n: n >= 1)
+        vel2, s2 = drive_unpacked(f"phase 20 {label} {N_MAIN}^3 timed 2", p, lambda n: n >= 1)
+        check_repeat(f"phase 20 {label}", vel1, s1, vel2, s2)
+        u_steps[label] = (s1, s2)
+        for name in table:
+            table[name]["launches_by_path"][label] = 0
+        del vel1, vel2
+    (ut1, ut2), (u1, u2), (g1, g2), (z1, z2) = (u_steps[k] for k in ("U_t", "U", "G", "P0"))
+    print(f"phase 20 U_t: iterations {ut1['iterations']} (A_t {sa1['iterations']}, the JAX suite's TPU record "
+          f"{JAX_ITERS['U_t']}); ms per apply {ut1['ms_per_apply']:.4f} and {ut2['ms_per_apply']:.4f} against A_t's "
+          f"{sa1['ms_per_apply']:.4f} and {sa2['ms_per_apply']:.4f}", flush=True)
+    print(f"phase 20 U: iterations {u1['iterations']} (A {st1['iterations']}); ms per apply {u1['ms_per_apply']:.4f} "
+          f"and {u2['ms_per_apply']:.4f} against A's {st1['ms_per_apply']:.4f} and {st2['ms_per_apply']:.4f}", flush=True)
+    print(f"phase 20 G (general regions): n_regions {g1['n_regions']} (U {u1['n_regions']}), iterations "
+          f"{g1['iterations']}, ms per apply {g1['ms_per_apply']:.4f} and {g2['ms_per_apply']:.4f}; P0 (tiles without "
+          f"padding): n_regions {z1['n_regions']}, iterations {z1['iterations']}, ms per apply "
+          f"{z1['ms_per_apply']:.4f} and {z2['ms_per_apply']:.4f}; peak device memory U_t {ut1['peak_gib']:.3f}, U "
+          f"{u1['peak_gib']:.3f}, G {g1['peak_gib']:.3f}, P0 {z1['peak_gib']:.3f} GiB", flush=True)
+    # the J couplings alone, device time of one reduce and one expand: the
+    # cube-major form (U_t, U) against the segmented sums (G at R = 64, P0
+    # at the tiled R)
+    from polystokes_tpu_torch.operators import forward_face_values
+    from polystokes_tpu_torch.reduced import Coupling
+
+    for label, p in unpacked.items():
+        c_cls, c_asm = solver._setup(grid, scene, p)
+        r = effective_max_regions(grid, p)
+        coupling = Coupling(grid, c_cls, c_asm.com, p, r)
+        x = pa.unpack_ptau((torch.randn((7,) + grid.res, generator=gen, device=dev)
+                            * pa.packed_masks(c_cls, torch.float32)).contiguous())
+        s_faces = forward_face_values(c_asm, x)
+        w = torch.randn((r, p.reduced_dof), generator=gen, device=dev)
+        print(f"phase 20 {label} J couplings ({'cube-major' if coupling.tiled else 'segmented'}, R {r}): reduce "
+              f"{graph_ms(lambda: coupling.reduce(s_faces)):.4f} ms, expand {graph_ms(lambda: coupling.expand(w)):.4f} "
+              f"ms on the device", flush=True)
+        del c_cls, c_asm, coupling, x, s_faces, w
+    # one apply of A's and A_t's systems, packed against unpacked, on one x
+    for label, p in (("A", p_a), ("A_t", p_t)):
+        c_cls, c_asm = solver._setup(grid, scene, p)
+        r = effective_max_regions(grid, p)
+        x = (torch.randn((7,) + grid.res, generator=gen, device=dev) * pa.packed_masks(c_cls, torch.float32)).contiguous()
+        ref = solver.make_apply_packed(grid, c_cls, c_asm, p, r)(x)
+        got = pa.pack_ptau(solver.make_apply(grid, c_cls, c_asm, p.replace(use_pallas=False), r)(pa.unpack_ptau(x)))
+        d, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        print(f"phase 20 {label} apply, unpacked against packed on one x: max|diff| {d:.3e} max {scale:.3e} rel "
+              f"{d / scale:.3e}", flush=True)
+        if not d <= KERNEL_RTOL * scale:
+            fail(f"phase 20 {label}: the unpacked apply disagrees with the packed one: {d} > {KERNEL_RTOL} * {scale}")
+        del c_cls, c_asm, x, ref, got
+    # the JAX suite's config 19: honey_coil 64^3 in fp64, unpacked, untiled
+    g64, s64 = honey_coil(n=64, dtype=torch.float64, device=dev)
+    _, s19 = drive_unpacked("phase 20 config 19 honey_coil 64^3 fp64", params(torch.float64, 1e-3, 5000,
+                                                                               use_pallas=False), lambda n: n >= 1,
+                            (g64, s64))
+    print(f"phase 20 config 19: iterations {s19['iterations']} (the JAX suite's TPU record {JAX_ITERS['config 19']}), "
+          f"n_regions {s19['n_regions']}, peak device memory {s19['peak_gib']:.3f} GiB", flush=True)
+    del g64, s64
+    torch.cuda.empty_cache()
+
+    # -- phase 21: at 32^3, tol 1e-5, unpacked on the card against the CPU;
+    # check_pallas's fallback; a resolution the tile does not divide
+    p32u = p32.replace(use_pallas=False)
+    for pc in (PreconditionerType.IDENTITY, PreconditionerType.DIAGONAL, PreconditionerType.CELL_ARROW,
+               PreconditionerType.REGION_ARROW):
+        print(f"phase 21 unpacked {pc.name} {N_CPU}^3, card and CPU:", flush=True)
+        p = p32u.replace(preconditioner=pc, max_iterations=20000)
+        agree(f"phase 21 unpacked {pc.name} {N_CPU}^3 velocities, card against CPU", step_32("cuda", p),
+              step_32("cpu", p))
+    print(f"phase 21 G (general regions) {N_CPU}^3, card and CPU:", flush=True)
+    p32g = p32u.replace(cube_regions=False)
+    agree(f"phase 21 G {N_CPU}^3 velocities, card against CPU", step_32("cuda", p32g), step_32("cpu", p32g))
+    # liquid on the index-0 planes (the all-liquid box of the JAX tests'
+    # make_case): check_pallas warns and turns the packed path off
+    import warnings
+
+    gen21 = torch.Generator(device="cpu").manual_seed(21)
+    res21 = (16, 16, 16)
+    face21 = [tuple(res21[i] + (i == a) for i in range(3)) for a in range(3)]
+    box = solver.Scene(
+        surface_sdf=torch.full(res21, -1.0, device=dev), collision_sdf=torch.full(res21, 1.0, device=dev),
+        velocity=tuple(torch.randn(s, generator=gen21).to(dev) for s in face21),
+        collision_velocity=tuple(torch.randn(s, generator=gen21).to(dev) for s in face21),
+        viscosity=(0.5 + 2.0 * torch.rand(res21, generator=gen21)).to(dev), dt=torch.tensor(0.04, device=dev))
+    from polystokes_tpu_torch import Grid
+
+    g21 = Grid(res=res21, dx=1.0 / 16)
+    p21 = params(torch.float32, 1e-5, 5000, do_tile=True, tile_size=8)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        q21 = solver.check_pallas(g21, box, p21)
+    fired = [str(w.message) for w in caught if "index-0 planes" in str(w.message)]
+    print(f"phase 21 check_pallas on the all-liquid box: boundary activity "
+          f"{solver.boundary_activity(g21, box, p21)}, warned {bool(fired)}, use_pallas {q21.use_pallas}", flush=True)
+    if not fired or q21 != p21.replace(use_pallas=False):
+        fail("phase 21: check_pallas did not fall back on liquid on the index-0 planes")
+    st21, l21 = step_counted(g21, box, q21)
+    print(f"phase 21 the all-liquid box after the fallback: iterations {st21['iterations']}, error "
+          f"{st21['error']:.3e}, converged {st21['converged']}, boundary_active {st21['boundary_active']}, launches "
+          f"{l21}", flush=True)
+    if not st21["converged"] or any(l21.values()):
+        fail(f"phase 21: the fallback step did not converge unpacked: {st21}, launches {l21}")
+    # honey_coil 72^3 at tile 16 (72 = 4.5 tiles): the packed layout does
+    # not take it, so use_pallas=True runs unpacked, without error
+    g72, s72 = honey_coil(n=72, dtype=torch.float32, device=dev)
+    p72 = p_t.replace(max_iterations=20000)
+    if solver._use_packed(g72, p72):
+        fail("phase 21: tile 16 does not divide 72, yet the packed path would be taken")
+    st72, l72 = step_counted(g72, s72, p72)
+    print(f"phase 21 honey_coil 72^3 tile 16 with use_pallas=True (unpacked): iterations {st72['iterations']}, error "
+          f"{st72['error']:.3e}, converged {st72['converged']}, n_regions {st72['n_regions']}, launches {l72}",
+          flush=True)
+    if not st72["converged"] or any(l72.values()):
+        fail(f"phase 21: honey_coil 72^3 at tile 16 did not run unpacked cleanly: {st72}, launches {l72}")
+    del g72, s72
 
     for name, entry in table.items():
         if MAIN_PATH[name] is None:

@@ -2,14 +2,16 @@
 
 The port of ``polystokes_tpu`` (JAX / Pallas), which stays the reference.
 It runs one implicit Stokes ``step`` on the tiled reduced configuration
-(the default: tile 16, padding 2), the untiled cube-region one or the
-uniform one, CELL_ARROW preconditioned CG (or BiCGStab or MINRES), on
-the packed kernel path::
+(the default: tile 16, padding 2), an untiled one (cube regions or the
+reference's general regions) or the uniform one, preconditioned CG (or
+BiCGStab or MINRES), through the unpacked apply (``use_pallas=False``,
+JAX's default) or the hand-written kernels of the packed path::
 
-    from polystokes_tpu_torch import SolverParams, step
+    from polystokes_tpu_torch import PreconditionerType, SolverParams, step
     from polystokes_tpu_torch.scenes.builders import honey_coil
     grid, scene = honey_coil(n=128, dtype=torch.float32, device="cuda")
-    velocity, valid, stats = step(grid, scene, SolverParams())
+    params = SolverParams(preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
+    velocity, valid, stats = step(grid, scene, params)
 
 ``solve_chunked`` runs the same solve in CG segments that can be
 interrupted, timed out and resumed from a state file, as the JAX package's.

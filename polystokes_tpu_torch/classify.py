@@ -1,9 +1,9 @@
 """Grid classification: material labels, boundary bands and reduced
 regions, down the tiled path of ``polystokes_tpu.classify``
 (``do_tile=True``: padding slabs cut the interior into tile cubes), its
-untiled cube-region path (``do_tile=False``, ``cube_regions=True``) and
-its uniform branch (``do_reduced_regions=False``: every fluid DOF active,
-no regions).
+untiled paths (``do_tile=False``: cube regions under ``cube_regions``, the
+reference's general region shapes without) and its uniform branch
+(``do_reduced_regions=False``: every fluid DOF active, no regions).
 
 Labels and region ids equal the JAX package's exactly: per-region arrays
 only compare when the region numbering matches, so every step keeps the
@@ -479,11 +479,13 @@ def _classify_uniform(grid: Grid, cell_labels, face_labels, edge_labels, max_reg
 
 
 def classify(grid: Grid, liquid_w, fluid_w, params: SolverParams) -> Classification:
-    """Full label pipeline of the tiled or the untiled cube-region path, or
-    the uniform one (exec/HDK_PolyStokes.C:356-404).  Tiled, the connected
-    components run at most 4 * tile_size sweeps, and no face needs the
-    untiled path's cube alignment: the padding slabs keep every region's
-    faces inside its own cube."""
+    """Full label pipeline of the tiled or an untiled path, or the uniform
+    one (exec/HDK_PolyStokes.C:356-404).  Tiled, the connected components
+    run at most 4 * tile_size sweeps, and no face needs the untiled cube
+    regions' alignment: the padding slabs keep every region's faces inside
+    its own cube.  Untiled without ``cube_regions`` the regions keep the
+    reference's shapes: no region is cut to one per cube, no face demoted,
+    and ``region_of_cube`` is [-1]."""
     max_regions = effective_max_regions(grid, params)
     face_labels = [classify_faces(liquid_w, fluid_w, a) for a in range(3)]
     edge_labels = [classify_edges(liquid_w, fluid_w, e) for e in range(3)]
@@ -496,15 +498,18 @@ def classify(grid: Grid, liquid_w, fluid_w, params: SolverParams) -> Classificat
     cell_region, region_valid, _, overflow = compact_regions(comp, max_regions)
     cell_labels, cell_region = fix_region_boundaries(cell_labels, cell_region, params.region_fix_max_iters)
     cell_labels, cell_region, region_valid = fix_small_regions(cell_labels, cell_region, region_valid, max_regions)
-    cell_labels, cell_region, region_valid, region_of_cube = enforce_one_region_per_cube(
-        cell_labels, cell_region, region_valid, params.tile_size, max_regions
-    )
+    if params.do_tile or params.cube_regions:
+        cell_labels, cell_region, region_valid, region_of_cube = enforce_one_region_per_cube(
+            cell_labels, cell_region, region_valid, params.tile_size, max_regions
+        )
+    else:
+        region_of_cube = torch.full((1,), INVALID_REGION, dtype=torch.int32, device=cell_labels.device)
     n_regions = region_valid.sum().to(torch.int32)
 
     face_region = []
     for a in range(3):
         nl, nr = face_reduced_indices(cell_labels, cell_region, face_labels[a], a)
-        if not params.do_tile:
+        if not params.do_tile and params.cube_regions:
             nl, nr = _demote_foreign_cube_faces(nl, nr, region_of_cube, params.tile_size, a, grid.res)
         face_labels[a] = nl
         face_region.append(nr)

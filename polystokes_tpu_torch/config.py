@@ -1,31 +1,29 @@
 """Configuration for the PyTorch port of the PolyStokes solver.
 
-The same schema as ``polystokes_tpu.config``: the enums, the reference
-constants and one frozen ``SolverParams`` with every field, the dtype as a
-torch dtype.  The port implements these families on the packed kernel
-path with CELL_ARROW, REGION_ARROW, DIAGONAL or IDENTITY preconditioned
-CG (with JAX's BiCGStab fallback when CG does not converge, on by
-default as in JAX), or with unpreconditioned BiCGStab or MINRES
-(``solver_type``):
+The same schema as ``polystokes_tpu.config``, with the same defaults: the
+enums, the reference constants and one frozen ``SolverParams`` with every
+field, the dtype as a torch dtype.  The port runs preconditioned CG
+(IDENTITY, the default, DIAGONAL, CELL_ARROW or REGION_ARROW; with JAX's
+BiCGStab fallback when CG does not converge, on by default as in JAX), or
+unpreconditioned BiCGStab or MINRES (``solver_type``), on
 
-* the tiled reduced step (``do_reduced_regions=True``, ``do_tile=True``
-  with ``tile_padding >= 1``, the JAX default): one region per tile cube
-  at most;
-* the untiled cube-region reduced step (``do_tile=False``,
-  ``cube_regions=True``);
+* the tiled reduced step (``do_reduced_regions=True``, ``do_tile=True``,
+  the JAX default), with any ``tile_padding``;
+* the untiled reduced step (``do_tile=False``) with cube regions
+  (``cube_regions=True``) or the reference's general region shapes
+  (``cube_regions=False``);
 * the uniform step (``do_reduced_regions=False``), the baseline the
   reduced step is measured against;
 
-each with ``fuse_pap`` on (the fused apply that also returns <p, A p>,
-the JAX default) or off, and ``fuse_update`` (the fused CG update, with
-``fuse_expand`` choosing the kernel that expands the region polynomials in
-place) on or off, and the reduced steps in either basis (``basis``
-QUADRATIC, the default, or AFFINE, the CLI's ``--affine``).  A field set
-to a value outside these families
-raises ``NotImplementedError`` naming the ROADMAP.md item that ports it;
-nothing is ignored silently.  Where the JAX default lies outside them
-(``preconditioner``, ``use_pallas``) the port's default is the supported
-value.
+in either basis (``basis`` QUADRATIC, the default, or AFFINE, the CLI's
+``--affine``), through one of two applies, picked as the JAX package
+picks them (``solver._use_packed``): the unpacked apply on (p, tau)
+fields (``use_pallas=False``, the default), or the hand-written CUDA
+kernels on packed [7, nx, ny, nz] vectors (``use_pallas=True``, where the
+packed layout takes the configuration), with ``fuse_pap``, ``fuse_update``
+and ``fuse_expand`` choosing among the packed kernels.  A field set to a
+value outside these families raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it; nothing is ignored silently.
 """
 from __future__ import annotations
 
@@ -77,7 +75,6 @@ NSAMPLES = 2
 
 # (field, supported values, ROADMAP.md item that ports the other values)
 _UNSUPPORTED = (
-    ("cube_regions", (True,), "Queue 1 item 6 (segmented general regions)"),
     ("cc_host_callback", (False,), "Queue 1 item 3 (host connected components)"),
     ("matrix_scheme", (MatrixScheme.PRESSURE_STRESS,), "Queue 1 item 13 (host explicit schemes)"),
     ("solver_type", (SolverType.PCG_MATRIX_VECTOR_PRODUCTS, SolverType.BICGSTAB, SolverType.MINRES),
@@ -86,7 +83,6 @@ _UNSUPPORTED = (
                         PreconditionerType.IDENTITY), "Queue 1 item 15 (multigrid)"),
     ("deflation", (False,), "Queue 1 item 15 (deflation)"),
     ("coeff_bf16", (False,), "Queue 1 item 15 (bf16 coefficients)"),
-    ("use_pallas", (True,), "Queue 1 item 7 (the unpacked apply)"),
     ("export_matrices", (False,), "Queue 1 item 13 (export)"),
     ("export_component_matrices", (False,), "Queue 1 item 13 (export)"),
     ("export_stats", (False,), "Queue 1 item 13 (export)"),
@@ -133,7 +129,7 @@ class SolverParams:
     # -- matrix & solver scheme
     matrix_scheme: MatrixScheme = MatrixScheme.PRESSURE_STRESS
     solver_type: SolverType = SolverType.PCG_MATRIX_VECTOR_PRODUCTS
-    preconditioner: PreconditionerType = PreconditionerType.CELL_ARROW
+    preconditioner: PreconditionerType = PreconditionerType.IDENTITY
     bicgstab_fallback: bool = True
     deflation: bool = False
     deflation_tile: int = 0
@@ -151,8 +147,8 @@ class SolverParams:
     # -- numerics
     dtype: torch.dtype = torch.float32
 
-    # -- packed kernel path (packed_apply.py)
-    use_pallas: bool = True
+    # -- the packed kernel path (packed_apply.py); off: the unpacked apply
+    use_pallas: bool = False
 
     # -- observability
     export_matrices: bool = False
@@ -176,13 +172,6 @@ class SolverParams:
             raise ValueError("tile_size >= 1 and tile_padding >= 0 required")
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {self.dtype}")
-        if self.do_reduced_regions and self.do_tile and self.tile_padding == 0:
-            # tiles without padding slabs: JAX's packed path refuses them and
-            # runs the unpacked apply (pallas_apply.pallas_compatible)
-            raise NotImplementedError(
-                "SolverParams.do_tile=True with tile_padding=0 is not ported yet "
-                "(only tile_padding >= 1); see ROADMAP.md Queue 1 item 7 (the unpacked apply)"
-            )
         for name, supported, item in _UNSUPPORTED:
             if getattr(self, name) not in supported:
                 raise NotImplementedError(

@@ -3,8 +3,12 @@
 convergence when rre = min(||r||^2, ||r||^2 / ||x||^2) < tol^2, and the
 iteration count 0-based (the reference's ``return i``).
 
-Vectors are packed tensors.  The carry's k, rre and done are device
-tensors, as in JAX.  The loop (``PCGLoop``) runs passes of one gated body
+Vectors are single tensors: the packed [7, nx, ny, nz] layout of the
+kernel path, or the flat layout of the unpacked one
+(``operators.ravel_ptau``), where JAX's loop runs on PTau pytrees and
+sums its dots field by field (``tree_dot``); the flat dot sums the same
+products in another order, a difference of round-off in fp64.  The
+carry's k, rre and done are device tensors, as in JAX.  The loop (``PCGLoop``) runs passes of one gated body
 over buffers it owns: a pass past convergence or past the segment's bound
 leaves the carry unchanged, so the host reads ``done`` only at a poll,
 every ``POLL_PASSES`` passes and at the segment's bound.  On the card the

@@ -65,6 +65,30 @@ class PTau:
     def __add__(self, o):
         return PTau(self.p + o.p, tuple(a + b for a, b in zip(self.tc, o.tc)), tuple(a + b for a, b in zip(self.te, o.te)))
 
+    def __sub__(self, o):
+        return PTau(self.p - o.p, tuple(a - b for a, b in zip(self.tc, o.tc)), tuple(a - b for a, b in zip(self.te, o.te)))
+
+    def fields(self) -> tuple:
+        """(p, tau_xx, tau_yy, tau_zz, tau_yz, tau_xz, tau_xy): the JAX
+        package's pytree leaf order."""
+        return (self.p,) + tuple(self.tc) + tuple(self.te)
+
+
+def ravel_ptau(x: PTau) -> torch.Tensor:
+    """PTau -> one flat vector: the seven fields in ``PTau.fields`` order,
+    each whole (the edges at their own shapes, the index-0 planes kept), so
+    the Krylov loop runs the unpacked path on one tensor as it runs the
+    packed one."""
+    return torch.cat([t.reshape(-1) for t in x.fields()])
+
+
+def unravel_ptau(flat: torch.Tensor, grid: Grid) -> PTau:
+    """The inverse of ``ravel_ptau`` on ``grid``'s shapes: views of ``flat``."""
+    shapes = [grid.center_shape] * 4 + [grid.edge_shape(e) for e in range(3)]
+    sizes = [s[0] * s[1] * s[2] for s in shapes]
+    parts = [t.view(s) for t, s in zip(torch.split(flat, sizes), shapes)]
+    return PTau(p=parts[0], tc=tuple(parts[1:4]), te=tuple(parts[4:7]))
+
 
 @dataclasses.dataclass(frozen=True)
 class Assembled:

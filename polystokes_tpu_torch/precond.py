@@ -1,5 +1,8 @@
 """The DIAGONAL, CELL_ARROW and REGION_ARROW preconditioners
-(``polystokes_tpu.precond``).  DIAGONAL is Jacobi on |diag(A)|
+(``polystokes_tpu.precond``): their factors, which the packed path
+(``solver.precond_factors_packed``) packs for its kernels, and their
+solves on (p, tau) vectors, which the unpacked path runs
+(``make_preconditioner``).  DIAGONAL is Jacobi on |diag(A)|
 (``schur_diagonal``); IDENTITY needs no factors.
 
 Per cell, the exact 4x4 restriction of -A to (p, tau_xx, tau_yy, tau_zz)
@@ -28,7 +31,7 @@ import torch
 
 from .basis import monomial_matrix, monomials_xyz, n_monomials
 from .classify import REDUCED
-from .config import SolverParams
+from .config import PreconditionerType, SolverParams
 from .operators import (
     Assembled,
     PTau,
@@ -38,30 +41,38 @@ from .operators import (
     scatter_face_to_edge,
     transpose_from_faces,
 )
-from .reduced import _face_offset_grids, block_broadcast, expand_J, reduce_J
+from .reduced import Coupling, _face_monomials_general, _face_offset_grids, _use_tiled, block_broadcast
 
 
 def _diag_quadratic_form(grid, cls, asm, params, a):
     """q_f = c_f^T BInv[r_f] c_f per face of axis a (0 off reduced faces),
-    through the per-region [K, K] matrix G = A^T BInv A, gathered per cube."""
+    through the per-region [K, K] matrix G = A^T BInv A: per cube on the
+    cube-major path, per face on the segmented one."""
     dtype = params.dtype
     reg = cls.face_region[a]
     red = (cls.face_labels[a] == REDUCED) & (reg >= 0)
     A = torch.as_tensor(monomial_matrix(a, params.basis), dtype=dtype, device=reg.device)
     G = torch.einsum("dk,rde,el->rkl", A, asm.binv, A)  # [R, K, K]
     K = n_monomials(params.basis)
-    T = params.tile_size
-    cs = tuple(-(-n // T) for n in cls.cell_labels.shape)
-    roc = cls.region_of_cube
-    safe_c = roc.clamp(0, G.shape[0] - 1).long()
-    mono = monomials_xyz(*_face_offset_grids(cls, asm.com, a, params, T, cs), params.basis)
+    if _use_tiled(params):
+        T = params.tile_size
+        cs = tuple(-(-n // T) for n in cls.cell_labels.shape)
+        roc = cls.region_of_cube
+        safe_c = roc.clamp(0, G.shape[0] - 1).long()
+        mono = monomials_xyz(*_face_offset_grids(cls, asm.com, a, params, T, cs), params.basis)
+
+        def g_kl(k, l):
+            return block_broadcast(torch.where(roc >= 0, G[safe_c, k, l], 0.0), (a,), T, cs, reg.shape)
+    else:
+        safe = reg.clamp(0, G.shape[0] - 1).long()
+        mono = _face_monomials_general(cls, asm.com, a, params)
+
+        def g_kl(k, l):
+            return G[:, k, l][safe]
     q = torch.zeros(reg.shape, dtype=dtype, device=reg.device)
     for k in range(K):
         for l in range(k, K):
-            gc = torch.where(roc >= 0, G[safe_c, k, l], 0.0)
-            gkl = block_broadcast(gc, (a,), T, cs, reg.shape)
-            scale = 1.0 if k == l else 2.0
-            q = q + scale * gkl * mono[k] * mono[l]
+            q = q + (1.0 if k == l else 2.0) * g_kl(k, l) * mono[k] * mono[l]
     return torch.where(red, q, 0.0)
 
 
@@ -121,24 +132,70 @@ def _arrow_solve_from(k, inv_d, kd, inv_schur, te_inv):
     return solve
 
 
+def make_cell_arrow(grid, cls, asm: Assembled, params: SolverParams, include_reduced_q: bool = True):
+    """The closed-form inverse of the per-cell arrow block on PTau values."""
+    return _arrow_solve_from(*cell_arrow_factors(grid, cls, asm, params, include_reduced_q))
+
+
 def region_schur_inv(grid, cls, asm: Assembled, params: SolverParams, R: int, arrow_solve):
     """inv(S), S_r = B_r + (U M0^-1 U^T)_rr per region, 0 on invalid regions.
 
     Column d of U M0^-1 U^T for every region at once is
     reduce_J(F M0^-1 F^T chi J^T e_d): the regions' stencil footprints are
     disjoint (the boundary separation of classify), so the capacitance is
-    block-diagonal per region.  D probes, a Python loop over the full grid;
-    then C is symmetrised and S inverted by Cholesky, as ``finalize_reduced``
-    inverts B."""
+    block-diagonal per region.  D probes, a Python loop over the full grid
+    through one ``Coupling``; then C is symmetrised and S inverted by
+    Cholesky, as ``finalize_reduced`` inverts B."""
     D = params.reduced_dof
     eye = torch.eye(D, dtype=params.dtype, device=asm.dt.device)
+    J = Coupling(grid, cls, asm.com, params, R)
     cols = []
     for d in range(D):
-        u = expand_J(grid, cls, asm.com, eye[d].expand(R, D), params)  # chi J^T e_d
+        u = J.expand(eye[d].expand(R, D))  # chi J^T e_d
         s = forward_face_values(asm, arrow_solve(transpose_from_faces(asm, u)))  # F M0^-1 F^T
-        cols.append(reduce_J(grid, cls, asm.com, s, params, R))  # J chi
+        cols.append(J.reduce(s))  # J chi
     C = torch.stack(cols, dim=-1)  # [R, D, D], column d from probe d
     C = 0.5 * (C + C.transpose(1, 2))
     valid = asm.region_valid[:, None, None]
     S = torch.where(valid, asm.mr / asm.dt + 2.0 * asm.vr + C, eye)
     return torch.where(valid, torch.cholesky_inverse(torch.linalg.cholesky(S)), 0.0)
+
+
+def make_region_arrow(grid, cls, asm: Assembled, params: SolverParams):
+    """REGION_ARROW on PTau values: the arrow block M0 without the reduced
+    quadratic form, plus the exact per-region restriction of J^T BInv J
+    through the Woodbury identity (module doc); the plain arrow solve
+    without regions."""
+    if not params.do_reduced_regions:
+        return make_cell_arrow(grid, cls, asm, params)
+    R = asm.binv.shape[0]
+    arrow = make_cell_arrow(grid, cls, asm, params, include_reduced_q=False)
+    sinv = region_schur_inv(grid, cls, asm, params, R, arrow)
+    J = Coupling(grid, cls, asm.com, params, R)
+
+    def solve(r: PTau) -> PTau:
+        y = arrow(r)
+        w = torch.einsum("rij,rj->ri", sinv, J.reduce(forward_face_values(asm, y)))  # S^-1 U y
+        return y - arrow(transpose_from_faces(asm, J.expand(w)))
+
+    return solve
+
+
+def make_preconditioner(grid, cls, asm: Assembled, params: SolverParams):
+    """The preconditioner's solve on PTau values (the unpacked path): None
+    for IDENTITY, Jacobi on |diag(A)| for DIAGONAL, the arrow solves for
+    CELL_ARROW and REGION_ARROW.  MULTIGRID raises in ``SolverParams``."""
+    if params.preconditioner == PreconditionerType.IDENTITY:
+        return None
+    if params.preconditioner == PreconditionerType.CELL_ARROW:
+        return make_cell_arrow(grid, cls, asm, params)
+    if params.preconditioner == PreconditionerType.REGION_ARROW:
+        return make_region_arrow(grid, cls, asm, params)
+    d = schur_diagonal(grid, cls, asm, params)
+    inv = PTau(p=_safe_inv(d.p), tc=tuple(_safe_inv(t) for t in d.tc), te=tuple(_safe_inv(t) for t in d.te))
+
+    def solve(r: PTau) -> PTau:
+        return PTau(p=inv.p * r.p, tc=tuple(i * t for i, t in zip(inv.tc, r.tc)),
+                    te=tuple(i * t for i, t in zip(inv.te, r.te)))
+
+    return solve

@@ -5,15 +5,19 @@ lines.
     python -m polystokes_tpu_torch.run --scene honey_coil --n 64 --steps 1 \
         --tile-size 16 --tile-padding 2 --tolerance 1e-3 \
         [--uniform] [--params params.json] [--checkpoint out/ck.npz] \
-        [--resume out/ck.npz] [--chunked | --crop | --sim] [--device cpu]
+        [--resume out/ck.npz] [--pallas] [--chunked | --crop | --sim | --profile] \
+        [--device cpu]
 
 The analog of driving the reference node from a Houdini scene: the same
 knobs (exec/HDK_PolyStokes.C:86-220) exposed as flags, stats printed per
 step (printStats parity), and checkpointing.  It runs on the CUDA card
-unless ``--device cpu`` is given.  The port has only the packed kernel
-path, so ``--pallas`` is accepted and changes nothing.  Flags of modes the
-port does not have yet raise ``NotImplementedError`` naming their
-ROADMAP.md item before any scene is built.
+unless ``--device cpu`` is given.  As in the JAX package, the solve runs
+the unpacked apply unless ``--pallas`` selects the packed kernels, which
+``solver.check_pallas`` turns off, with a warning, for a scene with liquid
+on the domain's index-0 planes; ``--profile`` prints the per-stage times
+of ``profiling.step_instrumented``.  Flags of modes the port does not
+have yet raise ``NotImplementedError`` naming their ROADMAP.md item before
+any scene is built.
 """
 from __future__ import annotations
 
@@ -56,7 +60,8 @@ def build_argparser():
                             "all_dofs_explicit_interior_stress"],
                    help="matrix scheme for --solver eigen")
     p.add_argument("--pallas", action="store_true",
-                   help="the packed kernel apply (the port's only apply: accepted, changes nothing)")
+                   help="the packed kernel apply (pre-flight checked; falls back to the unpacked apply if the "
+                   "scene touches the domain box)")
     p.add_argument("--fuse-update", action="store_true",
                    help="fused CG update kernels (packed path)")
     p.add_argument("--bf16-coeffs", action="store_true",
@@ -93,7 +98,6 @@ def build_argparser():
 # --deflation, --precond multigrid and --bf16-coeffs raise through
 # SolverParams, naming theirs)
 _UNPORTED = (
-    ("profile", "Queue 1 item 7 (the unpacked apply)"),
     ("flip", "Queue 1 item 14 (flip.py)"),
     ("export_prefix", "Queue 1 item 13 (export)"),
     ("export_mtx", "Queue 1 item 13 (export)"),
@@ -109,8 +113,7 @@ def _check_unported(args):
 
 def _params(args):
     """SolverParams from the flags, field for field as the JAX package's
-    CLI builds them (``use_pallas`` always on: the packed path), then
-    ``--params`` over them."""
+    CLI builds them, then ``--params`` over them."""
     import torch
 
     from .config import BasisOrder, MatrixScheme, PreconditionerType, SolverParams, SolverType
@@ -130,7 +133,7 @@ def _params(args):
         preconditioner=PreconditionerType.DIAGONAL if args.diag_precond else PreconditionerType(args.precond),
         solver_type=SolverType.EIGEN if args.solver == "eigen" else SolverType.PCG_MATRIX_VECTOR_PRODUCTS,
         matrix_scheme=MatrixScheme(args.scheme),
-        use_pallas=True,
+        use_pallas=args.pallas,
         fuse_update=args.fuse_update,
         coeff_bf16=args.bf16_coeffs,
         deflation=args.deflation,
@@ -180,7 +183,15 @@ def main(argv=None):
         if scene.surface_sdf.is_cuda:
             torch.cuda.synchronize(scene.surface_sdf.device)
 
-    if args.chunked or args.crop:
+    if args.profile:
+        from .profiling import print_stats, step_instrumented
+
+        for k in range(start, start + args.steps):
+            vel, valid, stats = step_instrumented(grid, scene, params)
+            print(f"step {k}:  converged={stats['converged']}  regions={stats['n_regions']}")
+            print_stats(stats)
+            scene = dataclasses.replace(scene, velocity=vel)
+    elif args.chunked or args.crop:
         from .solver import solve_chunked
 
         if args.crop:

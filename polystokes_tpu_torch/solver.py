@@ -1,25 +1,34 @@
 """One implicit Stokes step: weights -> classify -> reduce -> assemble ->
 solve -> recover -> write back, the counterpart of ``polystokes_tpu.solver``
-on its packed-kernel path (reference: exec/HDK_PolyStokes.C:222-609
-``solveGasSubclass``).
+(reference: exec/HDK_PolyStokes.C:222-609 ``solveGasSubclass``).
 
 Every tensor lives on the device of the scene's tensors.  The Krylov loop
-runs on packed [7, nx, ny, nz] vectors through the kernels of
-``packed_apply``.  The reduced apply is per-cube moments -> the small
-per-cube region algebra -> polynomial expand -> the reduced apply; with
-``fuse_pap`` each CG iteration instead runs the fused grid branch with
-moments and <p, A p> partials -> region algebra -> expand -> finish.  The
-uniform solve (``do_reduced_regions=False``) runs one kernel per apply.
-With ``fuse_update`` and a pointwise preconditioner (CELL_ARROW, DIAGONAL,
-IDENTITY) one kernel does the CG's vector update, preconditioner and dots;
-under ``fuse_pap`` on the reduced step it also does the finish (and with
-``fuse_expand`` the expand), which the apply then defers to it.
+runs on one of two layouts, picked as the JAX package picks them
+(``_use_packed``):
+
+* unpacked (``use_pallas=False``, the default): the apply of
+  ``make_apply`` on (p, tau) fields in plain torch ops, the JAX package's
+  XLA apply, on one flat vector (``operators.ravel_ptau``); it launches no
+  hand-written kernel.
+* packed (``use_pallas=True`` where the packed layout takes the
+  configuration): [7, nx, ny, nz] vectors through the kernels of
+  ``packed_apply``.  The reduced apply is per-cube moments -> the small
+  per-cube region algebra -> polynomial expand -> the reduced apply; with
+  ``fuse_pap`` each CG iteration instead runs the fused grid branch with
+  moments and <p, A p> partials -> region algebra -> expand -> finish.  The
+  uniform solve (``do_reduced_regions=False``) runs one kernel per apply.
+  With ``fuse_update`` and a pointwise preconditioner (CELL_ARROW,
+  DIAGONAL, IDENTITY) one kernel does the CG's vector update,
+  preconditioner and dots; under ``fuse_pap`` on the reduced step it also
+  does the finish (and with ``fuse_expand`` the expand), which the apply
+  then defers to it.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import time
+import warnings
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,8 +47,10 @@ from .operators import (
     coeff_fields,
     face_at_cell,
     forward_face_values,
+    ravel_ptau,
     scatter_face_to_edge,
     transpose_from_faces,
+    unravel_ptau,
 )
 from .packed_apply import (
     _edge_to_slot,
@@ -61,8 +72,8 @@ from .packed_apply import (
     transpose_u_packed,
     unpack_ptau,
 )
-from .precond import _arrow_solve_from, _safe_inv, cell_arrow_factors, region_schur_inv, schur_diagonal
-from .reduced import ReducedData, RegionSum, build_reduced, expand_J, finalize_reduced, reduce_J
+from .precond import _arrow_solve_from, _safe_inv, cell_arrow_factors, make_preconditioner, region_schur_inv, schur_diagonal
+from .reduced import Coupling, ReducedData, RegionSum, build_reduced, expand_J, finalize_reduced, reduce_J
 from .weights import compute_weights
 
 
@@ -223,8 +234,64 @@ def assemble(grid: Grid, scene: Scene, cls: Classification, liquid_w, fluid_w, p
 
 
 # ---------------------------------------------------------------------------
-# The packed Schur operator (ApplyPressureStressMatrix.h:102-179)
+# The matrix-free Schur operator (ApplyPressureStressMatrix.h:102-179)
 # ---------------------------------------------------------------------------
+
+def _use_packed(grid: Grid, params: SolverParams) -> bool:
+    """Whether the step runs the packed kernels: ``use_pallas``, not
+    MULTIGRID, and a configuration the packed layout takes, as in the JAX
+    package (``pallas_compatible``): tiled with padding slabs, or untiled
+    with cube regions, and a tile that divides every resolution; the
+    uniform step always.  The TPU's block rule (x and y divisible by its
+    block) is not the port's, so a resolution that only that rule refuses
+    runs packed here and unpacked in JAX."""
+    if not params.use_pallas or params.preconditioner == PreconditionerType.MULTIGRID:
+        return False
+    if not params.do_reduced_regions:
+        return True
+    if params.do_tile and params.tile_padding < 1:
+        return False
+    if not params.do_tile and not params.cube_regions:
+        return False
+    return all(n % params.tile_size == 0 for n in grid.res)
+
+
+def make_apply(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int):
+    """The Schur apply on PTau values, as the JAX package's ``make_apply``:
+    the packed kernels between a pack and an unpack where ``_use_packed``,
+    else the unpacked apply in plain torch ops,
+
+        A x = -[G Dt]^T (dt McInv + [J^T BInv J on reduced faces]) [G Dt] x
+              - 0.5 uInv x,
+
+    whose J couplings (``reduced.Coupling``) are set up here, once."""
+    if _use_packed(grid, params):
+        apply_packed = make_apply_packed(grid, cls, asm, params, R)
+        return lambda x: unpack_ptau(apply_packed(pack_ptau(x)))
+    J = Coupling(grid, cls, asm.com, params, R) if params.do_reduced_regions else None
+
+    def apply_A(x: PTau) -> PTau:
+        s = forward_face_values(asm, x)  # (G p + Dt tau) on every face
+        # active branch: -dt [G Dt]^T McInv [G Dt] x
+        fv = [-asm.dt * asm.mc_inv[a] * s[a] for a in range(3)]
+        if J is not None:
+            # reduced branch: -[JG JDt]^T BInv [JG JDt] x
+            u = J.expand(torch.einsum("rij,rj->ri", asm.binv, J.reduce(s)))
+            fv = [fv[a] - u[a] for a in range(3)]
+        out = transpose_from_faces(asm, fv)
+        tc = tuple(out.tc[a] - 0.5 * asm.uinv_c * x.tc[a] for a in range(3))
+        te = tuple(out.te[e] - 0.5 * asm.uinv_e[e] * x.te[e] for e in range(3))
+        return PTau(p=out.p, tc=tc, te=te)
+
+    return apply_A
+
+
+def _flat(fn, grid: Grid):
+    """A PTau -> PTau function as one on flat vectors (None stays None)."""
+    if fn is None:
+        return None
+    return lambda xf: ravel_ptau(fn(unravel_ptau(xf, grid)))
+
 
 def _region_algebra_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int, matrix=None):
     """The per-cube region algebra between the moments and expand kernels:
@@ -459,18 +526,30 @@ def _warm_guess(grid: Grid, cls: Classification, asm: Assembled, params: SolverP
 
 
 def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParams, initial_guess=None, pfac=None):
-    """(apply_K, apply_dot, fused_update, precond, b_K, x0_K) on the packed
-    layout: the unsharded, undeflated branch of the JAX package's
-    ``_build_krylov_system``; ``apply_dot`` is the fused apply with
-    <p, A p> under ``fuse_pap``, else None; ``fused_update`` the fused CG
-    update under ``fuse_update`` with a pointwise preconditioner, else
-    None.  ``initial_guess`` (a PTau) seeds the solve; without it
+    """(apply_K, apply_dot, fused_update, precond, b_K, x0_K): the
+    unsharded, undeflated branches of the JAX package's
+    ``_build_krylov_system``.  Packed (``_use_packed``), the vectors are
+    [7, nx, ny, nz] tensors, ``apply_dot`` the fused apply with <p, A p>
+    under ``fuse_pap``, else None, and ``fused_update`` the fused CG update
+    under ``fuse_update`` with a pointwise preconditioner, else None.
+    Unpacked, the vectors are flat (``operators.ravel_ptau``), the apply
+    and the preconditioner are ``make_apply`` and
+    ``precond.make_preconditioner`` on them, and both fused forms are None.
+    ``initial_guess`` (a PTau) seeds the solve; without it
     ``device_warm_start`` and ``use_warm_start`` together seed it with
     ``_warm_guess``, else it starts from zero.  ``pfac``
-    (``precond_factors_packed``) skips the factors, which
+    (``precond_factors_packed``) skips the packed factors, which
     ``solve_chunked`` computes once."""
     R = effective_max_regions(grid, params)
-    b_K = pack_ptau(build_rhs(grid, cls, asm, params, R))
+    b = build_rhs(grid, cls, asm, params, R)
+    if initial_guess is None and params.device_warm_start and params.use_warm_start:
+        initial_guess = _warm_guess(grid, cls, asm, params)
+    if not _use_packed(grid, params):
+        b_K = ravel_ptau(b)
+        x0_K = torch.zeros_like(b_K) if initial_guess is None else ravel_ptau(initial_guess).to(b_K.dtype)
+        return (_flat(make_apply(grid, cls, asm, params, R), grid), None, None,
+                _flat(make_preconditioner(grid, cls, asm, params), grid), b_K, x0_K)
+    b_K = pack_ptau(b)
     apply_K = make_apply_packed(grid, cls, asm, params, R)
     if pfac is None:
         pfac = precond_factors_packed(grid, cls, asm, params)
@@ -478,8 +557,6 @@ def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParam
     apply_dot = (make_apply_packed_pap(grid, cls, asm, params, R, defer_finish=_defer_finish(params, fused_update))
                  if params.fuse_pap else None)
     precond = make_preconditioner_packed(grid, cls, asm, params, pfac)
-    if initial_guess is None and params.device_warm_start and params.use_warm_start:
-        initial_guess = _warm_guess(grid, cls, asm, params)
     x0_K = torch.zeros_like(b_K) if initial_guess is None else pack_ptau(initial_guess).to(b_K.dtype)
     return apply_K, apply_dot, fused_update, precond, b_K, x0_K
 
@@ -560,33 +637,40 @@ def boundary_activity(grid: Grid, scene: Scene, params: SolverParams) -> int:
 
 
 def check_pallas(grid: Grid, scene: Scene, params: SolverParams) -> SolverParams:
-    """Pre-flight of the packed layout: raises ValueError when the scene
-    has active DOFs on the dropped index-0 planes (the unpacked apply that
-    the JAX package falls back to is not ported); else returns params."""
+    """Pre-flight of the packed layout, as the JAX package's: where the
+    step would run packed and the scene has active DOFs on the index-0
+    planes that the packed layout drops, warn and return params with
+    ``use_pallas=False`` (the unpacked apply is exact there); else return
+    params unchanged.  Call once per scene topology before ``step``."""
+    if not _use_packed(grid, params):
+        return params
     n = boundary_activity(grid, scene, params)
     if n:
-        raise ValueError(
-            f"scene has {n} active DOFs on the domain-boundary index-0 planes, "
-            "which the packed layout drops"
+        warnings.warn(
+            f"scene has {n} active DOFs on the domain-boundary index-0 planes; "
+            "the packed layout drops those, so use_pallas is disabled "
+            "for this solve (falling back to the unpacked apply)",
+            stacklevel=2,
         )
+        return params.replace(use_pallas=False)
     return params
 
 
 def _write_back(grid: Grid, scene: Scene, params: SolverParams, cls: Classification, asm: Assembled,
                 res: krylov.KrylovResult):
-    """Unpack, recover, write back, the boundary fail-safe,
-    ``keep_non_converged`` and the stats: the tail of ``step`` and
-    ``solve_chunked``."""
+    """Recover, write back, the boundary fail-safe, ``keep_non_converged``
+    and the stats: the tail of ``step`` and ``solve_chunked``."""
     R = effective_max_regions(grid, params)
-    x = unpack_ptau(res.x)
+    packed = _use_packed(grid, params)
+    x = unpack_ptau(res.x) if packed else unravel_ptau(res.x, grid)
     v, w = recover_velocity(grid, cls, asm, x, params, R)
     new_vel, valid = apply_solution_to_velocity(grid, cls, asm, scene, v, w, params)
 
     # fail safe on the packed layout invariant: liquid touching the domain
-    # box puts active DOFs on the dropped index-0 planes, so the solve is
-    # reported as failed instead of returning wrong physics
+    # box puts active DOFs on the dropped index-0 planes, so a packed solve
+    # is reported as failed instead of returning wrong physics
     boundary_active = _boundary_active(cls)
-    converged = bool(res.converged) and boundary_active == 0
+    converged = bool(res.converged) and (boundary_active == 0 or not packed)
     if not params.keep_non_converged and not converged:
         new_vel = tuple(scene.velocity[a].to(params.dtype) for a in range(3))
 
@@ -621,6 +705,27 @@ def _chunk_init(grid: Grid, scene: Scene, params: SolverParams, cls, asm, initia
     return krylov.pcg_init(apply_K, b_K, x0_K, precond), loop
 
 
+def _carry_leaves(grid: Grid, params: SolverParams, carry: krylov.PCGCarry) -> list:
+    """The carry as the JAX package's pytree leaves: on the unpacked layout
+    x, r and p are PTau values, seven leaves each."""
+    if _use_packed(grid, params):
+        return list(carry)
+    vecs = [t for v in carry[:3] for t in unravel_ptau(v, grid).fields()]
+    return vecs + list(carry[3:])
+
+
+def _carry_from_leaves(grid: Grid, params: SolverParams, like: krylov.PCGCarry, leaves) -> krylov.PCGCarry:
+    """The inverse of ``_carry_leaves`` (numpy leaves), on ``like``'s device
+    and dtypes."""
+    def t(a, ref):
+        return torch.as_tensor(a).to(device=ref.device, dtype=ref.dtype)
+
+    if _use_packed(grid, params):
+        return krylov.PCGCarry(*(t(a, ref) for a, ref in zip(leaves, like)))
+    vecs = [torch.cat([t(a, like.x).reshape(-1) for a in leaves[7 * i:7 * i + 7]]) for i in range(3)]
+    return krylov.PCGCarry(*vecs, *(t(a, ref) for a, ref in zip(leaves[21:], like[3:])))
+
+
 def _chunk_segment(loop: krylov.PCGLoop, carry: krylov.PCGCarry, segment_iters: int) -> krylov.PCGCarry:
     """At most ``segment_iters`` more iterations of the loop from carry."""
     return loop.segment(carry, segment_iters)
@@ -635,14 +740,14 @@ def _chunk_finalize(grid: Grid, scene: Scene, params: SolverParams, cls, asm, ca
 def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
     """One Stokes solve.  Returns (new_velocity, valid_masks, stats).
     ``initial_guess`` (optional PTau) seeds the Krylov solve, as in the JAX
-    package.  The packed kernels need ``tile_size`` to divide every
-    resolution.
+    package.  The layout is ``_use_packed``'s: the packed kernels, or the
+    unpacked apply, which launches none.
 
     ``solver_type`` picks the solver as in the JAX package: preconditioned
     CG, then with ``bicgstab_fallback`` BiCGStab from the same x0 when CG
     did not converge (a host branch where JAX has ``lax.cond``); or
-    BiCGStab or MINRES alone, unpreconditioned, on the packed apply
-    (kernels 1-3, or 7 on the uniform step).  After a fallback the
+    BiCGStab or MINRES alone, unpreconditioned, on the step's apply (on the
+    packed layout kernels 1-3, or 7 on the uniform step).  After a fallback the
     iterations and error are BiCGStab's, ``operator_applies`` and
     ``loop_passes`` the sum of both solves'."""
     cls, asm = _setup(grid, scene, params)
@@ -683,9 +788,10 @@ def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters:
         has passed (partial result)
       * callback(stats_dict) -> truthy to request a stop
       * state_path + resume: persist the PCG carry after each segment
-        (``np.savez``, keys leaf0..leaf6 = x, r, p, rsold, k, rre, done, as
-        the JAX package writes them) and resume a killed run from it (same
-        scene and params)
+        (``np.savez``, keys leaf0, leaf1, ... in the JAX package's pytree
+        leaf order: x, r, p, rsold, k, rre, done, where on the unpacked
+        layout x, r and p are seven fields each, ``PTau.fields``) and
+        resume a killed run from it (same scene and params)
 
     It runs preconditioned CG whatever ``solver_type`` says, with no
     BiCGStab fallback, as the JAX package's does.
@@ -705,15 +811,16 @@ def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters:
     t_start = time.monotonic()
     _v("setup...")
     cls, asm = _setup(grid, scene, params)
-    _v("precond factors...")
-    pfac = precond_factors_packed(grid, cls, asm, params)
+    pfac = None
+    if _use_packed(grid, params):
+        _v("precond factors...")
+        pfac = precond_factors_packed(grid, cls, asm, params)
     _v("chunk init...")
     carry, loop = _chunk_init(grid, scene, params, cls, asm, initial_guess, pfac)
     _v("first segment...")
     if resume and state_path and os.path.exists(state_path):
         with np.load(state_path) as d:
-            carry = krylov.PCGCarry(*(torch.as_tensor(d[f"leaf{i}"]).to(device=t.device, dtype=t.dtype)
-                                      for i, t in enumerate(carry)))
+            carry = _carry_from_leaves(grid, params, carry, [d[f"leaf{i}"] for i in range(len(d.files))])
 
     interrupted = False
     try:
@@ -722,7 +829,8 @@ def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters:
             k, done, rre = int(carry.k), bool(carry.done), float(carry.rre)
             _v(f"segment done: k={k} rre={rre:.3e} done={done}")
             if state_path:
-                np.savez(state_path, **{f"leaf{i}": t.cpu().numpy() for i, t in enumerate(carry)})
+                np.savez(state_path, **{f"leaf{i}": t.cpu().numpy()
+                                        for i, t in enumerate(_carry_leaves(grid, params, carry))})
             if callback is not None and callback({"iterations": k, "rre": rre, "done": done}):
                 interrupted = True
             if done or k >= params.max_iterations or interrupted:

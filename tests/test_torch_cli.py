@@ -43,11 +43,13 @@ def _pairs():
     """Equal params in both packages (every value one the port runs)."""
     return [
         (JParams(dtype=jnp.float64, basis=JBasisOrder.AFFINE, tile_size=8, preconditioner=JPC.DIAGONAL, use_pallas=True),
-         SolverParams(dtype=torch.float64, basis=BasisOrder.AFFINE, tile_size=8, preconditioner=PreconditionerType.DIAGONAL)),
+         SolverParams(dtype=torch.float64, basis=BasisOrder.AFFINE, tile_size=8, preconditioner=PreconditionerType.DIAGONAL,
+                      use_pallas=True)),
         (JParams(solver_type=JSolverType.MINRES, do_tile=False, max_regions=64, tolerance=1e-5, use_pallas=True,
                  preconditioner=JPC.CELL_ARROW, fuse_update=True, constant_density=1000.0),
          SolverParams(solver_type=SolverType.MINRES, do_tile=False, max_regions=64, tolerance=1e-5,
-                      fuse_update=True, constant_density=1000.0)),
+                      fuse_update=True, constant_density=1000.0, preconditioner=PreconditionerType.CELL_ARROW,
+                      use_pallas=True)),
     ]
 
 
@@ -136,7 +138,7 @@ def test_cli_modes_on_the_cpu(tmp_path, capsys, monkeypatch):
 
 
 _ITEMS = [
-    (["--profile"], "Queue 1 item 7"), (["--flip", "100"], "Queue 1 item 14"),
+    (["--flip", "100"], "Queue 1 item 14"),
     (["--export-prefix", "x."], "Queue 1 item 13"), (["--export-mtx"], "Queue 1 item 13"), (["--viz"], "Queue 1 item 13"),
     (["--solver", "eigen"], "Queue 1 item 13"), (["--scheme", "all_dofs"], "Queue 1 item 13"),
     (["--deflation"], "Queue 1 item 15"), (["--precond", "multigrid"], "Queue 1 item 15"),

@@ -15,6 +15,9 @@ from polystokes_tpu_torch.config import PreconditionerType, SolverParams
 from polystokes_tpu_torch.grid import Grid
 from polystokes_tpu_torch.scenes.builders import _base, honey_coil
 
+# the packed CELL_ARROW path, stated since the defaults became JAX's (IDENTITY, unpacked)
+PACKED_ARROW = dict(preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
+
 T = 16
 # f32: sums of up to 4096 terms in another order than the twin; fp64 likewise
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -28,7 +31,7 @@ def _require_cuda():
 def _setup(dtype, **kw):
     grid, scene = honey_coil(n=32, dtype=dtype, device="cuda")
     params = SolverParams(do_tile=False, dtype=dtype, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
-                          bicgstab_fallback=False, **kw)
+                          bicgstab_fallback=False, **{**PACKED_ARROW, **kw})
     cls, asm = tsolver._setup(grid, scene, params)
     return grid, scene, params, cls, asm
 
@@ -95,7 +98,7 @@ def test_cuda_step_matches_cpu(reduced, fuse_pap):
     """The step on the card (kernels) against the CPU (twins), fp64 32^3."""
     _require_cuda()
     params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
-                          do_reduced_regions=reduced, fuse_pap=fuse_pap, bicgstab_fallback=False)
+                          do_reduced_regions=reduced, fuse_pap=fuse_pap, bicgstab_fallback=False, **PACKED_ARROW)
     out = {}
     for dev in ("cuda", "cpu"):
         grid, scene = honey_coil(n=32, dtype=torch.float64, device=dev)
@@ -114,7 +117,7 @@ def _solid_setup(dtype, tile=T):
     grid = Grid(res=(32, 32, 32), dx=1.0 / 32)
     scene = _base(grid, sdf.box((0.1, 0.1, 0.1), (0.9, 0.9, 0.9)), sdf.plane((0.15, 0.1, 1.0), 0.23), dtype, "cuda",
                   dt=1 / 48, viscosity=50.0)
-    params = SolverParams(do_tile=False, dtype=dtype, tile_size=tile, max_regions=64)
+    params = SolverParams(do_tile=False, dtype=dtype, tile_size=tile, max_regions=64, **PACKED_ARROW)
     cls, asm = tsolver._setup(grid, scene, params)
     cut = sum(int((is_active(cls.face_labels[a]) & (asm.ffw[a] > 0) & (asm.ffw[a] < 1)).sum()) for a in range(3))
     assert cut > 0 and int(cls.n_regions) >= 1
@@ -147,7 +150,7 @@ def test_cuda_region_arrow_step_matches_cpu():
     """The REGION_ARROW step (fuse_pap on) on the card against the CPU, fp64 32^3."""
     _require_cuda()
     params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
-                          preconditioner=PreconditionerType.REGION_ARROW, bicgstab_fallback=False)
+                          preconditioner=PreconditionerType.REGION_ARROW, bicgstab_fallback=False, use_pallas=True)
     out = {}
     for dev in ("cuda", "cpu"):
         grid, scene = honey_coil(n=32, dtype=torch.float64, device=dev)
@@ -203,7 +206,7 @@ def test_cuda_fused_update_step_matches_cpu():
     the CPU, fp64 32^3; every iteration's update is the expanding kernel."""
     _require_cuda()
     params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=T, max_regions=64, tolerance=1e-5, max_iterations=5000,
-                          fuse_update=True, bicgstab_fallback=False)
+                          fuse_update=True, bicgstab_fallback=False, **PACKED_ARROW)
     out = {}
     for dev in ("cuda", "cpu"):
         grid, scene = honey_coil(n=32, dtype=torch.float64, device=dev)

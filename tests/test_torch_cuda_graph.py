@@ -20,6 +20,9 @@ from polystokes_tpu_torch import solver as tsolver
 from polystokes_tpu_torch.config import PreconditionerType, SolverParams
 from polystokes_tpu_torch.scenes.builders import honey_coil
 
+# the packed CELL_ARROW path, stated since the defaults became JAX's (IDENTITY, unpacked)
+PACKED_ARROW = dict(preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
+
 PATHS = {
     "A": dict(),
     "F": dict(fuse_update=True),
@@ -35,7 +38,7 @@ def _require_cuda():
 
 def _params(**kw):
     return SolverParams(do_tile=False, dtype=torch.float32, tile_size=16, max_regions=64, tolerance=1e-5, max_iterations=5000,
-                        bicgstab_fallback=False, **kw)
+                        bicgstab_fallback=False, **{**PACKED_ARROW, **kw})
 
 
 def _pcg(system, graph):

@@ -15,9 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from polystokes_tpu_torch import SolverParams, sim
+from polystokes_tpu_torch import PreconditionerType, SolverParams, sim
 from polystokes_tpu_torch.grid import face_offsets
 from polystokes_tpu_torch.scenes.builders import honey_coil
+
+# the packed CELL_ARROW path, stated since the defaults became JAX's (IDENTITY, unpacked)
+PACKED_ARROW = dict(preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
 
 N = 24
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # the same ops; FMA contraction may differ
@@ -80,7 +83,7 @@ def test_advect_field_gather_card_against_cpu(dtype):
 def test_simulate_frame_card_against_cpu():
     _require_cuda()
     params = SolverParams(dtype=torch.float32, do_tile=True, tile_size=8, tile_padding=2, tolerance=1e-5,
-                          max_iterations=12000, device_warm_start=True, bicgstab_fallback=False)
+                          max_iterations=12000, device_warm_start=True, bicgstab_fallback=False, **PACKED_ARROW)
     out = {}
     for where in ("cuda", "cpu"):
         grid, scene = honey_coil(n=32, dtype=torch.float32, device=where)

@@ -17,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from polystokes_tpu_torch import Scene, SolverParams, domain, step
+from polystokes_tpu_torch import PreconditionerType, Scene, SolverParams, domain, step
 from polystokes_tpu_torch.config import SolverType
 from polystokes_tpu_torch.grid import Grid
 from polystokes_tpu_torch.scenes.builders import honey_coil
+
+# the packed CELL_ARROW path, stated since the defaults became JAX's (IDENTITY, unpacked)
+PACKED_ARROW = dict(preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
 
 VEL_ATOL = 2e-4  # times max |v|: the packed-against-XLA bound of the JAX tests, after a converged solve
 N = 32
@@ -41,7 +44,7 @@ def _agree(got, ref):
 def test_bicgstab_step_card_against_cpu():
     _require_cuda()
     params = SolverParams(dtype=torch.float64, do_tile=False, tile_size=16, tile_padding=2, max_regions=64,
-                          tolerance=1e-5, max_iterations=5000, solver_type=SolverType.BICGSTAB)
+                          tolerance=1e-5, max_iterations=5000, solver_type=SolverType.BICGSTAB, **PACKED_ARROW)
     out = {}
     for where in ("cuda", "cpu"):
         grid, scene = honey_coil(n=N, dtype=torch.float64, device=where)
@@ -71,7 +74,7 @@ def _sphere(device):
 def test_solve_cropped_card_against_cpu():
     _require_cuda()
     params = SolverParams(dtype=torch.float32, do_tile=True, tile_size=8, tile_padding=2, tolerance=1e-5,
-                          max_iterations=12000)
+                          max_iterations=12000, **PACKED_ARROW)
     grid = Grid(res=(N, N, N), dx=1.0 / N)
     out = {}
     for where in ("cuda", "cpu"):

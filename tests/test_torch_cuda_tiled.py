@@ -21,9 +21,12 @@ from polystokes_tpu_torch import packed_apply as tpa
 from polystokes_tpu_torch import solver as tsolver
 from polystokes_tpu_torch import step
 from polystokes_tpu_torch.classify import effective_max_regions
-from polystokes_tpu_torch.config import BasisOrder, SolverParams
+from polystokes_tpu_torch.config import BasisOrder, PreconditionerType, SolverParams
 from polystokes_tpu_torch.reduced import RegionSum
 from polystokes_tpu_torch.scenes.builders import honey_coil
+
+# the packed CELL_ARROW path, stated since the defaults became JAX's (IDENTITY, unpacked)
+PACKED_ARROW = dict(preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
 
 T = 8
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # the twin sums in another order
@@ -37,7 +40,7 @@ def _require_cuda():
 
 def _params(dtype, **kw):
     return SolverParams(dtype=dtype, do_tile=True, tile_size=T, tile_padding=2, tolerance=1e-5, max_iterations=5000,
-                        bicgstab_fallback=False, **kw)
+                        bicgstab_fallback=False, **{**PACKED_ARROW, **kw})
 
 
 def _case(dtype, basis=BasisOrder.QUADRATIC):

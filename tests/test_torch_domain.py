@@ -33,7 +33,7 @@ from polystokes_tpu.grid import Grid as JGrid
 from polystokes_tpu.solver import Scene as JScene
 
 from polystokes_tpu_torch import convert, domain, solve_chunked
-from polystokes_tpu_torch.config import SolverParams
+from polystokes_tpu_torch.config import PreconditionerType, SolverParams
 from polystokes_tpu_torch.grid import Grid
 
 torch.set_num_threads(1)
@@ -75,7 +75,8 @@ def _scenes(liquid="sphere", extras=True):
 
 def _params(**kw):
     return SolverParams(**{**dict(dtype=torch.float64, do_tile=True, tile_size=8, tile_padding=2, tolerance=1e-8,
-                                  max_iterations=4000, bicgstab_fallback=False), **kw})
+                                  max_iterations=4000, bicgstab_fallback=False,
+                                  preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True), **kw})
 
 
 def _jparams(**kw):

@@ -21,7 +21,7 @@ from polystokes_tpu import krylov as jkrylov
 
 from polystokes_tpu_torch import krylov
 from polystokes_tpu_torch import solver as tsolver
-from polystokes_tpu_torch.config import SolverParams
+from polystokes_tpu_torch.config import PreconditionerType, SolverParams
 from polystokes_tpu_torch.scenes.builders import honey_coil
 
 torch.set_num_threads(1)
@@ -157,7 +157,8 @@ def _ungated_pcg(apply_A, b, x0, precond, tol, max_iters, apply_dot=None, fused_
 def test_gated_loop_bit_equal_to_ungated(fuse_update):
     grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
     params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=8, tile_padding=2, max_regions=64, tolerance=1e-3,
-                          max_iterations=2000, fuse_update=fuse_update, bicgstab_fallback=False)
+                          max_iterations=2000, fuse_update=fuse_update, bicgstab_fallback=False,
+                          preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
     cls, asm = tsolver._setup(grid, scene, params)
     apply_K, apply_dot, fused, precond, b_K, x0_K = tsolver._build_krylov_system(grid, cls, asm, scene, params)
     assert apply_dot is not None and (fused is not None) == fuse_update

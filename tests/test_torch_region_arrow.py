@@ -278,7 +278,7 @@ def _port_step(preconditioner, reduced=True):
         grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
         params = SolverParams(do_tile=False, dtype=torch.float64, tile_size=8, max_regions=64, tolerance=1e-3, max_iterations=2000,
                               preconditioner=preconditioner, do_reduced_regions=reduced,
-                              bicgstab_fallback=False)
+                              bicgstab_fallback=False, use_pallas=True)
         _PORT[key] = tstep(grid, scene, params)
     return _PORT[key]
 

@@ -25,11 +25,14 @@ from polystokes_tpu.config import PreconditionerType as JPC
 from polystokes_tpu.config import SolverParams as JParams
 from polystokes_tpu.scenes import builders as jbuilders
 
-from polystokes_tpu_torch import SolverParams, convert, sim
+from polystokes_tpu_torch import PreconditionerType, SolverParams, convert, sim
 from polystokes_tpu_torch.scenes.builders import honey_coil, viscous_beam
 from polystokes_tpu_torch.solver import check_pallas
 
 torch.set_num_threads(1)
+
+# the packed CELL_ARROW path, stated since the defaults became JAX's (IDENTITY, unpacked)
+PACKED_ARROW = dict(preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
 
 STEP_ITERS = 40  # before the two packages' CG trajectories part by round-off growth
 FRAME_RTOL = 1e-10
@@ -58,7 +61,7 @@ def test_beam_sags_over_frames():
     grid, scene = viscous_beam(n=24, dtype=torch.float64, device="cpu", viscosity=5.0, dt=1 / 24)
     params = check_pallas(grid, scene, SolverParams(dtype=torch.float64, do_tile=True, tile_size=8, tile_padding=2,
                                                     tolerance=1e-5, max_iterations=1500,
-                                                    bicgstab_fallback=False))
+                                                    bicgstab_fallback=False, **PACKED_ARROW))
 
     def com_z(s):
         m = (s.surface_sdf < 0).double()
@@ -80,7 +83,7 @@ def test_simulate_chains_frames_with_cfl_substeps():
     and calls back after every frame; equal results, bit for bit."""
     grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
     params = SolverParams(dtype=torch.float64, do_tile=True, tile_size=8, tile_padding=2, max_iterations=30,
-                          device_warm_start=True, bicgstab_fallback=False)
+                          device_warm_start=True, bicgstab_fallback=False, **PACKED_ARROW)
     seen = []
     out, stats = sim.simulate(grid, scene, params, frames=2, callback=lambda k, s, st: seen.append((k, st)))
     assert [k for k, _ in seen] == [0, 1] and [st["iterations"] for _, st in seen] == [s["iterations"] for s in stats]

@@ -23,7 +23,7 @@ from polystokes_tpu.scenes import builders as jbuilders
 
 from polystokes_tpu_torch import convert
 from polystokes_tpu_torch import step as tstep
-from polystokes_tpu_torch.config import BasisOrder, SolverParams, SolverType
+from polystokes_tpu_torch.config import BasisOrder, MatrixScheme, PreconditionerType, SolverParams, SolverType
 
 torch.set_num_threads(1)
 
@@ -100,24 +100,26 @@ def test_import_leaves_jax_out():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
-# tiles without padding (do_tile is on by default) have no packed path in JAX
-_ITEM = {"tile_padding": r"ROADMAP.md Queue 1 item 7 \(the unpacked apply\)"}
-
-
 @pytest.mark.parametrize("field, value", [
-    ("tile_padding", 0), ("cube_regions", False), ("coeff_bf16", True), ("deflation", True),
-    ("cc_host_callback", True), ("use_pallas", False), ("solver_type", SolverType.EIGEN),
+    ("preconditioner", PreconditionerType.MULTIGRID), ("export_stats", True), ("coeff_bf16", True),
+    ("deflation", True), ("cc_host_callback", True), ("matrix_scheme", MatrixScheme.ALL_DOFS),
+    ("solver_type", SolverType.EIGEN),
 ])
 def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match=_ITEM.get(field, "ROADMAP.md")):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SolverParams(**{field: value})
 
 
 @pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions", "fuse_update", "fuse_expand", "do_tile",
-                                   "device_warm_start", "bicgstab_fallback"])
+                                   "device_warm_start", "bicgstab_fallback", "use_pallas", "cube_regions"])
 @pytest.mark.parametrize("value", [True, False])
 def test_ported_options_construct(field, value):
     assert getattr(SolverParams(**{field: value}), field) is value
+
+
+def test_tiles_without_padding_construct():
+    """tile_padding=0 (tiles without padding slabs) runs, unpacked, as in JAX."""
+    assert SolverParams(do_tile=True, tile_padding=0).tile_padding == 0
 
 
 def test_affine_basis_is_ported():
@@ -155,16 +157,18 @@ def _boundary_liquid():
 
     grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
     scene = dataclasses.replace(scene, surface_sdf=torch.full(grid.res, -1.0, dtype=torch.float64))
-    return grid, scene, SolverParams(do_tile=False, dtype=torch.float64, tile_size=8, max_regions=64)
+    return grid, scene, SolverParams(do_tile=False, dtype=torch.float64, tile_size=8, max_regions=64,
+                                     preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
 
 
 def test_check_pallas_raises_on_boundary_liquid():
-    """The packed pre-flight raises with the count instead of switching to
-    another path."""
+    """The packed pre-flight warns with the count and switches the solve to
+    the unpacked apply (use_pallas=False), as the JAX package's does."""
     from polystokes_tpu_torch.solver import check_pallas
 
-    with pytest.raises(ValueError, match="index-0 planes"):
-        check_pallas(*_boundary_liquid())
+    grid, scene, params = _boundary_liquid()
+    with pytest.warns(UserWarning, match="index-0 planes"):
+        assert check_pallas(grid, scene, params) == params.replace(use_pallas=False)
 
 
 def test_step_fails_safe_on_boundary_liquid():

@@ -32,7 +32,7 @@ from polystokes_tpu.config import PreconditionerType as JPC
 from polystokes_tpu.config import SolverParams as JParams
 from polystokes_tpu.scenes import builders as jbuilders
 
-from polystokes_tpu_torch import SolverParams, convert
+from polystokes_tpu_torch import PreconditionerType, SolverParams, convert
 from polystokes_tpu_torch import solver as tsolver
 from polystokes_tpu_torch.packed_apply import unpack_ptau
 from polystokes_tpu_torch.scenes.builders import honey_coil
@@ -102,7 +102,7 @@ def test_density_variable_field_rejected():
 def test_density_constant_field_solve_matches_paramless():
     """A constant field gives the step of the same constant_density, bit for bit."""
     base = SolverParams(dtype=torch.float64, max_iterations=40, do_tile=True, tile_size=8, tile_padding=2,
-                        bicgstab_fallback=False)
+                        bicgstab_fallback=False, preconditioner=PreconditionerType.CELL_ARROW, use_pallas=True)
     grid, scene, dense = _density_case(2.0)
     with_field = tsolver.sample_density(dense, base)
     assert with_field.constant_density == 2.0
