@@ -199,6 +199,67 @@ def connected_components(labels, liquid_w, max_iters: int):
     return torch.where(red, comp, torch.tensor(INVALID_REGION, dtype=torch.int32, device=labels.device))
 
 
+def connected_components_host(labels, liquid_w):
+    """The host union-find form of ``connected_components``
+    (``SolverParams.cc_host_callback``, untiled): the labels and the three
+    face weight fields go to the host, ``native.connected_components_host``
+    (or, where g++ is missing, ``_numpy_cc``) labels the components there,
+    and the labels come back to the scene's device as int32.  The JAX
+    package runs the same host code through ``jax.pure_callback``.  The
+    partition is the device propagation's; the labels differ (0..count-1
+    in order of first appearance, or scipy's), which ``compact_regions``
+    does not see: it numbers the slots in increasing label, so the slots
+    may be numbered otherwise."""
+    import numpy as np
+
+    from .native import connected_components_host as native_cc
+
+    host = [t.detach().cpu().numpy() for t in (labels,) + tuple(liquid_w[f"face{a}"] for a in range(3))]
+    res = native_cc(*host)
+    comp = _numpy_cc(*host) if res is None else res[0]
+    return torch.from_numpy(np.ascontiguousarray(comp, dtype=np.int32)).to(labels.device)
+
+
+def _numpy_cc(labels, fwx, fwy, fwz):
+    """scipy form of the host union-find, where the native library cannot
+    be built (the JAX package's ``_numpy_cc``)."""
+    import numpy as np
+    from scipy import ndimage
+
+    red = labels == REDUCED
+    # connectivity only across faces with positive liquid weight: scipy's
+    # label uses full 6-connectivity, so the (rare) zero-weight interior
+    # face takes a union-find sweep instead
+    interior_x = fwx[1:-1] > 0
+    interior_y = fwy[:, 1:-1] > 0
+    interior_z = fwz[:, :, 1:-1] > 0
+    if interior_x.all() and interior_y.all() and interior_z.all():
+        lab, _n = ndimage.label(red)
+        return np.where(red, lab - 1, -1).astype(np.int32)
+    n = labels.size
+    parent = np.arange(n, dtype=np.int64)
+
+    def find(i):
+        while parent[i] != i:
+            parent[i] = parent[parent[i]]
+            i = parent[i]
+        return i
+
+    idx = np.arange(n).reshape(labels.shape)
+    for a, fw in ((0, fwx), (1, fwy), (2, fwz)):
+        sl_lo = [slice(None)] * 3
+        sl_lo[a] = slice(0, labels.shape[a] - 1)
+        sl_hi = [slice(None)] * 3
+        sl_hi[a] = slice(1, labels.shape[a])
+        ok = red[tuple(sl_lo)] & red[tuple(sl_hi)] & (fw[tuple(sl_hi)] > 0)
+        for i, j in zip(idx[tuple(sl_lo)][ok].ravel(), idx[tuple(sl_hi)][ok].ravel()):
+            ri, rj = find(i), find(j)
+            if ri != rj:
+                parent[max(ri, rj)] = min(ri, rj)
+    roots = np.array([find(i) for i in range(n)]).reshape(labels.shape)
+    return np.where(red, roots, -1).astype(np.int32)
+
+
 def compact_regions(comp, max_regions: int):
     """Map component labels to dense slots [0, max_regions) in increasing
     component label.  Returns (region_ids, region_valid, n_regions,
@@ -485,7 +546,8 @@ def classify(grid: Grid, liquid_w, fluid_w, params: SolverParams) -> Classificat
     regions' alignment: the padding slabs keep every region's faces inside
     its own cube.  Untiled without ``cube_regions`` the regions keep the
     reference's shapes: no region is cut to one per cube, no face demoted,
-    and ``region_of_cube`` is [-1]."""
+    and ``region_of_cube`` is [-1].  Untiled with ``cc_host_callback`` the
+    components come from the host union-find (``connected_components_host``)."""
     max_regions = effective_max_regions(grid, params)
     face_labels = [classify_faces(liquid_w, fluid_w, a) for a in range(3)]
     edge_labels = [classify_edges(liquid_w, fluid_w, e) for e in range(3)]
@@ -493,8 +555,10 @@ def classify(grid: Grid, liquid_w, fluid_w, params: SolverParams) -> Classificat
         return _classify_uniform(grid, classify_cells(liquid_w, fluid_w), face_labels, edge_labels, max_regions)
     cell_labels = construct_reduced_regions(classify_cells(liquid_w, fluid_w), liquid_w, params)
 
-    cc_iters = 4 * params.tile_size if params.do_tile else sum(grid.res)
-    comp = connected_components(cell_labels, liquid_w, cc_iters)
+    if params.cc_host_callback and not params.do_tile:
+        comp = connected_components_host(cell_labels, liquid_w)
+    else:
+        comp = connected_components(cell_labels, liquid_w, 4 * params.tile_size if params.do_tile else sum(grid.res))
     cell_region, region_valid, _, overflow = compact_regions(comp, max_regions)
     cell_labels, cell_region = fix_region_boundaries(cell_labels, cell_region, params.region_fix_max_iters)
     cell_labels, cell_region, region_valid = fix_small_regions(cell_labels, cell_region, region_valid, max_regions)

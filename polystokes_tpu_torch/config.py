@@ -3,9 +3,9 @@
 The same schema as ``polystokes_tpu.config``, with the same defaults: the
 enums, the reference constants and one frozen ``SolverParams`` with every
 field, the dtype as a torch dtype.  The port runs preconditioned CG
-(IDENTITY, the default, DIAGONAL, CELL_ARROW or REGION_ARROW; with JAX's
-BiCGStab fallback when CG does not converge, on by default as in JAX), or
-unpreconditioned BiCGStab or MINRES (``solver_type``), on
+(IDENTITY, the default, DIAGONAL, CELL_ARROW, REGION_ARROW or MULTIGRID;
+with JAX's BiCGStab fallback when CG does not converge, on by default as
+in JAX), or unpreconditioned BiCGStab or MINRES (``solver_type``), on
 
 * the tiled reduced step (``do_reduced_regions=True``, ``do_tile=True``,
   the JAX default), with any ``tile_padding``;
@@ -20,8 +20,10 @@ in either basis (``basis`` QUADRATIC, the default, or AFFINE, the CLI's
 picks them (``solver._use_packed``): the unpacked apply on (p, tau)
 fields (``use_pallas=False``, the default), or the hand-written CUDA
 kernels on packed [7, nx, ny, nz] vectors (``use_pallas=True``, where the
-packed layout takes the configuration), with ``fuse_pap``, ``fuse_update``
-and ``fuse_expand`` choosing among the packed kernels.  A field set to a
+packed layout takes the configuration; never under MULTIGRID), with
+``fuse_pap``, ``fuse_update`` and ``fuse_expand`` choosing among the
+packed kernels.  Untiled, ``cc_host_callback`` labels the connected
+components on the host (``classify.connected_components_host``).  A field set to a
 value outside these families raises ``NotImplementedError`` naming the
 ROADMAP.md item that ports it; nothing is ignored silently.
 """
@@ -75,12 +77,9 @@ NSAMPLES = 2
 
 # (field, supported values, ROADMAP.md item that ports the other values)
 _UNSUPPORTED = (
-    ("cc_host_callback", (False,), "Queue 1 item 3 (host connected components)"),
     ("matrix_scheme", (MatrixScheme.PRESSURE_STRESS,), "Queue 1 item 13 (host explicit schemes)"),
     ("solver_type", (SolverType.PCG_MATRIX_VECTOR_PRODUCTS, SolverType.BICGSTAB, SolverType.MINRES),
      "Queue 1 item 13 (host explicit schemes)"),
-    ("preconditioner", (PreconditionerType.CELL_ARROW, PreconditionerType.REGION_ARROW, PreconditionerType.DIAGONAL,
-                        PreconditionerType.IDENTITY), "Queue 1 item 15 (multigrid)"),
     ("deflation", (False,), "Queue 1 item 15 (deflation)"),
     ("coeff_bf16", (False,), "Queue 1 item 15 (bf16 coefficients)"),
     ("export_matrices", (False,), "Queue 1 item 13 (export)"),
@@ -95,9 +94,8 @@ class SolverParams:
 
     ``device_warm_start`` with ``use_warm_start`` seeds the device CG with
     the warm-start guess (``solver._warm_guess``), as in the JAX package.
-    There ``use_warm_start`` alone feeds only the host EIGEN path and the
-    ``mg_*`` knobs act only under MULTIGRID; both of those switches raise
-    above.  ``fuse_expand`` acts only under ``fuse_update`` on the reduced
+    There ``use_warm_start`` alone feeds only the host EIGEN path, which
+    raises above; the ``mg_*`` knobs act only under MULTIGRID.  ``fuse_expand`` acts only under ``fuse_update`` on the reduced
     step."""
 
     # -- discretization / solve control

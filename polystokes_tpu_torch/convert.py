@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from . import config
+from .flip import FlipState
 from .grid import Grid
 from .solver import Scene
 
@@ -69,3 +70,17 @@ def scene_from_numpy(scene, device, dtype=None) -> Scene:
         collision_weights=opt_faces(scene.collision_weights),
         density=None if scene.density is None else _tensor(scene.density, device, dtype),
     )
+
+
+def flip_state_from_numpy(state, device, dtype=None):
+    """Any object with FlipState's fields (a JAX FlipState included) ->
+    the port's ``flip.FlipState`` on ``device``, each field through
+    ``np.asarray``; ``dtype`` casts the three when given."""
+    return FlipState(pos=_tensor(state.pos, device, dtype), vel=_tensor(state.vel, device, dtype),
+                     alive=_tensor(state.alive, device, dtype))
+
+
+def flip_state_to_numpy(state) -> dict:
+    """The port's FlipState -> {"pos", "vel", "alive"} numpy arrays, the
+    keyword arguments of a JAX FlipState."""
+    return {f: getattr(state, f).detach().cpu().numpy() for f in ("pos", "vel", "alive")}

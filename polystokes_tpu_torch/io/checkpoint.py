@@ -6,9 +6,15 @@ a checkpoint is a self-contained npz snapshot of the Scene plus named
 extra state, and ``SolverParams`` round-trip through JSON (enums by name,
 the dtype as "float32" or "float64").  The npz keys and the JSON are the
 JAX package's, so a checkpoint written by either package loads in the
-other.  As there, the snapshot holds the SDFs, viscosity, dt, velocities
-and collision velocities: not ``scene.density`` nor the input face
-weights.
+other.  The snapshot holds the SDFs, viscosity, dt, velocities and
+collision velocities, as there, and also, where the scene has them,
+``scene.density`` and the input face weights (``surface_weights``,
+``collision_weights``), under the format's own ``extra_`` keys
+(``extra_scene_density``, ``extra_scene_surface_weights0``..2,
+``extra_scene_collision_weights0``..2), which the load restores into the
+scene.  The JAX package writes none of the three, so a resumed SI scene
+lost its density there; its loader returns ``extra_*`` entries without
+reading them, so either package still loads the other's files.
 """
 from __future__ import annotations
 
@@ -30,6 +36,9 @@ _ENUMS = {
     "basis": BasisOrder,
 }
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# the Scene fields the JAX format leaves out, written under extra_<_SCENE>...
+_SCENE = "scene_"
+_FACE_FIELDS = ("surface_weights", "collision_weights")
 
 
 def params_to_json(params: SolverParams) -> str:
@@ -74,6 +83,11 @@ def save_checkpoint(path: str, grid: Grid, scene: Scene, params: SolverParams, s
     for a in range(3):
         payload[f"velocity{a}"] = _np(scene.velocity[a])
         payload[f"collision_velocity{a}"] = _np(scene.collision_velocity[a])
+    if scene.density is not None:
+        payload[f"extra_{_SCENE}density"] = _np(scene.density)
+    for name in _FACE_FIELDS:
+        for a, t in enumerate(getattr(scene, name) or ()):
+            payload[f"extra_{_SCENE}{name}{a}"] = _np(t)
     for k, v in (extra or {}).items():
         payload[f"extra_{k}"] = _np(v)
     np.savez_compressed(path, params_json=params_to_json(params), **payload)
@@ -82,7 +96,8 @@ def save_checkpoint(path: str, grid: Grid, scene: Scene, params: SolverParams, s
 def load_checkpoint(path: str, device="cuda"):
     """(grid, scene, params, step_index, extra): the scene's tensors on
     ``device`` (the card unless the caller asks for the CPU) in the params'
-    dtype; ``extra`` holds numpy arrays."""
+    dtype, the density and input face weights restored where the file has
+    them; ``extra`` holds the other ``extra_`` entries as numpy arrays."""
     with np.load(path, allow_pickle=False) as d:
         params = params_from_json(str(d["params_json"]))
         grid = Grid(res=tuple(int(x) for x in d["res"]), dx=float(d["dx"]))
@@ -90,6 +105,11 @@ def load_checkpoint(path: str, device="cuda"):
         def t(key):
             return torch.as_tensor(d[key], dtype=params.dtype, device=device)
 
+        def faces(name):
+            keys = [f"extra_{_SCENE}{name}{a}" for a in range(3)]
+            return tuple(t(k) for k in keys) if all(k in d.files for k in keys) else None
+
+        density_key = f"extra_{_SCENE}density"
         scene = Scene(
             surface_sdf=t("surface_sdf"),
             collision_sdf=t("collision_sdf"),
@@ -97,7 +117,10 @@ def load_checkpoint(path: str, device="cuda"):
             collision_velocity=tuple(t(f"collision_velocity{a}") for a in range(3)),
             viscosity=t("viscosity"),
             dt=t("dt"),
+            surface_weights=faces("surface_weights"),
+            collision_weights=faces("collision_weights"),
+            density=t(density_key) if density_key in d.files else None,
         )
-        extra = {k[6:]: d[k] for k in d.files if k.startswith("extra_")}
+        extra = {k[6:]: d[k] for k in d.files if k.startswith("extra_") and not k.startswith(f"extra_{_SCENE}")}
         step_index = int(d["step_index"])
     return grid, scene, params, step_index, extra

@@ -184,13 +184,18 @@ def make_region_arrow(grid, cls, asm: Assembled, params: SolverParams):
 def make_preconditioner(grid, cls, asm: Assembled, params: SolverParams):
     """The preconditioner's solve on PTau values (the unpacked path): None
     for IDENTITY, Jacobi on |diag(A)| for DIAGONAL, the arrow solves for
-    CELL_ARROW and REGION_ARROW.  MULTIGRID raises in ``SolverParams``."""
+    CELL_ARROW and REGION_ARROW, the V-cycle of ``multigrid`` for
+    MULTIGRID."""
     if params.preconditioner == PreconditionerType.IDENTITY:
         return None
     if params.preconditioner == PreconditionerType.CELL_ARROW:
         return make_cell_arrow(grid, cls, asm, params)
     if params.preconditioner == PreconditionerType.REGION_ARROW:
         return make_region_arrow(grid, cls, asm, params)
+    if params.preconditioner == PreconditionerType.MULTIGRID:
+        from .multigrid import make_multigrid
+
+        return make_multigrid(grid, cls, asm, params)
     d = schur_diagonal(grid, cls, asm, params)
     inv = PTau(p=_safe_inv(d.p), tc=tuple(_safe_inv(t) for t in d.tc), te=tuple(_safe_inv(t) for t in d.te))
 

@@ -5,8 +5,8 @@ lines.
     python -m polystokes_tpu_torch.run --scene honey_coil --n 64 --steps 1 \
         --tile-size 16 --tile-padding 2 --tolerance 1e-3 \
         [--uniform] [--params params.json] [--checkpoint out/ck.npz] \
-        [--resume out/ck.npz] [--pallas] [--chunked | --crop | --sim | --profile] \
-        [--device cpu]
+        [--resume out/ck.npz] [--pallas] [--precond multigrid] \
+        [--chunked | --crop | --flip P | --sim | --profile] [--device cpu]
 
 The analog of driving the reference node from a Houdini scene: the same
 knobs (exec/HDK_PolyStokes.C:86-220) exposed as flags, stats printed per
@@ -15,7 +15,9 @@ unless ``--device cpu`` is given.  As in the JAX package, the solve runs
 the unpacked apply unless ``--pallas`` selects the packed kernels, which
 ``solver.check_pallas`` turns off, with a warning, for a scene with liquid
 on the domain's index-0 planes; ``--profile`` prints the per-stage times
-of ``profiling.step_instrumented``.  Flags of modes the port does not
+of ``profiling.step_instrumented``; ``--flip P`` runs FLIP frames with P
+particle slots (``flip.flip_frame``, without reseeding, as the JAX CLI
+does).  Flags of modes the port does not
 have yet raise ``NotImplementedError`` naming their ROADMAP.md item before
 any scene is built.
 """
@@ -95,10 +97,8 @@ def build_argparser():
 
 
 # flag -> the ROADMAP.md item that ports its mode (--solver eigen, --scheme,
-# --deflation, --precond multigrid and --bf16-coeffs raise through
-# SolverParams, naming theirs)
+# --deflation and --bf16-coeffs raise through SolverParams, naming theirs)
 _UNPORTED = (
-    ("flip", "Queue 1 item 14 (flip.py)"),
     ("export_prefix", "Queue 1 item 13 (export)"),
     ("export_mtx", "Queue 1 item 13 (export)"),
     ("viz", "Queue 1 item 13 (export)"),
@@ -214,6 +214,16 @@ def main(argv=None):
             sync()
             print(_line("step", k, time.perf_counter() - t0, stats, f"  interrupted={stats['interrupted']}"), flush=True)
             scene = dataclasses.replace(scene, velocity=vel)
+    elif args.flip:
+        from .flip import flip_frame, seed_particles
+
+        state = seed_particles(grid, scene.surface_sdf, args.flip, dtype=params.dtype)
+        print(f"seeded {int(state.alive.sum())} / {args.flip} particles")
+        for k in range(start, start + args.steps):
+            t0 = time.perf_counter()
+            scene, state, stats = flip_frame(grid, scene, state, params, gravity=args.gravity)
+            sync()
+            print(_line("frame", k, time.perf_counter() - t0, stats), flush=True)
     elif args.sim:
         from .sim import cfl_substeps, simulate_frame
 

@@ -737,6 +737,24 @@ def _chunk_finalize(grid: Grid, scene: Scene, params: SolverParams, cls, asm, ca
     return _write_back(grid, scene, params, cls, asm, krylov.pcg_result(carry, passes))
 
 
+def _fallback(apply_K, b_K, pcg_res: krylov.KrylovResult, fb: krylov.KrylovResult):
+    """(result, kept) after BiCGStab ran as PCG's fallback: BiCGStab's
+    result where its x is finite and its true residual |b - A x| is no
+    larger than PCG's x's, else PCG's x, iterations and error; the applies
+    and passes of both solves either way.  One apply for each x, not
+    counted in ``applies``.  A divergence from the JAX package, which
+    writes BiCGStab's x back unchecked, NaN or blown up in f32 (ROADMAP.md
+    Queue 3, divergence 4)."""
+
+    def resid(x):
+        return float(torch.linalg.vector_norm((b_K - apply_K(x)).double()))
+
+    keep = bool(torch.isfinite(fb.x).all()) and resid(fb.x) <= resid(pcg_res.x)
+    res = fb if keep else pcg_res
+    res = res._replace(applies=pcg_res.applies + fb.applies, passes=pcg_res.passes + fb.passes)
+    return res, "bicgstab" if keep else "pcg"
+
+
 def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
     """One Stokes solve.  Returns (new_velocity, valid_masks, stats).
     ``initial_guess`` (optional PTau) seeds the Krylov solve, as in the JAX
@@ -747,13 +765,16 @@ def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
     CG, then with ``bicgstab_fallback`` BiCGStab from the same x0 when CG
     did not converge (a host branch where JAX has ``lax.cond``); or
     BiCGStab or MINRES alone, unpreconditioned, on the step's apply (on the
-    packed layout kernels 1-3, or 7 on the uniform step).  After a fallback the
-    iterations and error are BiCGStab's, ``operator_applies`` and
-    ``loop_passes`` the sum of both solves'."""
+    packed layout kernels 1-3, or 7 on the uniform step).  After a fallback
+    the step keeps BiCGStab's result only where it is the better one
+    (``_fallback``), else PCG's x, iterations and error;
+    ``stats["fallback_kept"]`` says which ("bicgstab" or "pcg", None where
+    no fallback ran), and ``operator_applies`` and ``loop_passes`` are the
+    sum of both solves'."""
     cls, asm = _setup(grid, scene, params)
     apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params,
                                                                                  initial_guess)
-    capture = 0.0
+    capture, kept = 0.0, None
     tol, max_iters = params.tolerance, params.max_iterations
     if not params.do_solve:
         res = krylov.KrylovResult(x=x0_K, iterations=0, error=0.0, converged=True, applies=0, passes=0)
@@ -764,14 +785,14 @@ def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
         capture = loop.capture_seconds or 0.0  # the CUDA graphs' capture, 0 where none
         del loop  # its buffers and graphs, before a fallback allocates its own
         if params.bicgstab_fallback and not res.converged:
-            fb = krylov.bicgstab(apply_K, b_K, x0_K, tol=tol, max_iters=max_iters)
-            res = fb._replace(applies=res.applies + fb.applies, passes=res.passes + fb.passes)
+            res, kept = _fallback(apply_K, b_K, res, krylov.bicgstab(apply_K, b_K, x0_K, tol=tol, max_iters=max_iters))
     elif params.solver_type == SolverType.BICGSTAB:
         res = krylov.bicgstab(apply_K, b_K, x0_K, tol=tol, max_iters=max_iters)
     else:
         res = krylov.minres(apply_K, b_K, x0_K, tol=tol, max_iters=max_iters)
     new_vel, valid, stats = _write_back(grid, scene, params, cls, asm, res)
     stats["capture_seconds"] = capture
+    stats["fallback_kept"] = kept
     return new_vel, valid, stats
 
 

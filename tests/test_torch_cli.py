@@ -94,9 +94,12 @@ def test_checkpoints_interchange(tmp_path):
     g2, s2, p2, k2, ex2 = jck.load_checkpoint(path_t)
     assert g2 == grid and p2 == jp and k2 == 4 and s2.density is None
     _assert_scenes_equal(s2, scene)
-    assert set(ex2) == set(extra) and all(np.array_equal(ex2[n], extra[n]) for n in extra)
+    # the port also writes the scene's density, which JAX's loader returns
+    # among the extras (ROADMAP.md Queue 3 divergence 5)
+    assert set(ex2) == set(extra) | {"scene_density"} and all(np.array_equal(ex2[n], extra[n]) for n in extra)
+    assert np.array_equal(ex2["scene_density"], np.asarray(scene.density))
     with np.load(path_t) as dt_, np.load(path_j) as dj:
-        assert sorted(dt_.files) == sorted(dj.files)
+        assert sorted(dt_.files) == sorted(dj.files + ["extra_scene_density"])
 
 
 def test_cli_modes_on_the_cpu(tmp_path, capsys, monkeypatch):
@@ -138,11 +141,9 @@ def test_cli_modes_on_the_cpu(tmp_path, capsys, monkeypatch):
 
 
 _ITEMS = [
-    (["--flip", "100"], "Queue 1 item 14"),
     (["--export-prefix", "x."], "Queue 1 item 13"), (["--export-mtx"], "Queue 1 item 13"), (["--viz"], "Queue 1 item 13"),
     (["--solver", "eigen"], "Queue 1 item 13"), (["--scheme", "all_dofs"], "Queue 1 item 13"),
-    (["--deflation"], "Queue 1 item 15"), (["--precond", "multigrid"], "Queue 1 item 15"),
-    (["--bf16-coeffs"], "Queue 1 item 15"),
+    (["--deflation"], "Queue 1 item 15"), (["--bf16-coeffs"], "Queue 1 item 15"),
 ]
 
 

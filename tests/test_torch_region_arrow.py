@@ -311,8 +311,11 @@ def test_uniform_region_arrow_is_cell_arrow():
 
 @pytest.mark.parametrize("name", ["MULTIGRID"])
 def test_other_preconditioners_still_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SolverParams(preconditioner=PreconditionerType[name])
+    """MULTIGRID is ported; what item 15 leaves with it, deflation on top
+    of a preconditioner, still raises."""
+    assert SolverParams(preconditioner=PreconditionerType[name]).preconditioner == PreconditionerType[name]
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
+        SolverParams(preconditioner=PreconditionerType[name], deflation=True)
 
 
 def test_params_from_jax_carries_region_arrow():

@@ -101,8 +101,8 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("field, value", [
-    ("preconditioner", PreconditionerType.MULTIGRID), ("export_stats", True), ("coeff_bf16", True),
-    ("deflation", True), ("cc_host_callback", True), ("matrix_scheme", MatrixScheme.ALL_DOFS),
+    ("export_matrices", True), ("export_stats", True), ("coeff_bf16", True),
+    ("deflation", True), ("export_component_matrices", True), ("matrix_scheme", MatrixScheme.ALL_DOFS),
     ("solver_type", SolverType.EIGEN),
 ])
 def test_unported_options_raise(field, value):
