@@ -137,9 +137,9 @@ Phases (any failed check exits non-zero before the final line):
      CROP_RTOL of max(|A x|, |b|) (and is within it of 0 outside) and
      whose write-back inside the box is within CROP_RTOL of max |v| of
      the cropped one's.  Two tol-1e-3 solves of this scene need not agree to
-     that bound (S16 at tol 1e-3 and 1e-5 are printed apart), so the
-     cropped and the uncropped tol-1e-3 velocities are printed, not held;
-     S16 and the cropped solve at tol 1e-5 are printed beside them;
+     that bound (S16 moved 20 % of max |v| between tol 1e-3 and 1e-5;
+     PERF.md section 7), so the cropped and the uncropped tol-1e-3
+     velocities are printed, not held;
  18. the other solvers: solver_type BICGSTAB (tol 1e-5), MINRES (20
      iterations) and the BiCGStab fallback (PCG stopped at 20 iterations,
      then 20 of BiCGStab) at 32^3 in fp64 on the card against the CPU
@@ -160,9 +160,10 @@ Phases (any failed check exits non-zero before the final line):
      (IDENTITY, BiCGStab fallback, the unpacked apply) for 2 steps with a
      checkpoint (written with use_pallas=False, as the JAX CLI's default
      writes it), resumed for 1 (printing step 2), with --crop --chunked,
-     with --sim for 2 frames, with --pallas (the packed kernels) and with
-     --profile (profiling.step_instrumented): each exits with 0 and prints
-     its step or frame lines with converged=True;
+     with --sim for 2 frames, with --pallas (the packed kernels), with
+     --profile (profiling.step_instrumented), with --bf16-coeffs --pallas,
+     with --deflation and with --deflation --pallas: each exits with 0 and
+     prints its step or frame lines with converged=True;
  20. the unpacked apply (use_pallas=False, JAX's default: no hand-written
      kernel) on honey_coil 128^3, f32, tol 1e-3, CELL_ARROW, each path
      warm and once timed with phase 4's checks (converged, error < 1e-3,
@@ -200,13 +201,32 @@ Phases (any failed check exits non-zero before the final line):
  23. MULTIGRID (unpacked, as in JAX) on honey_coil 128^3 tiled at tile 16
      (A_t's system), warm and timed: converged, captured as a CUDA graph,
      bit-equal, no kernel launched; iterations and ms per apply beside
-     U_t's (phase 20); at 32^3 (tile 8, tol 1e-5, the cheaper MG_CHEAP
-     cycle) on the card against the CPU port, both converged (phase 10's
-     bound); --precond multigrid through the CLI at 32^3;
+     U_t's (phase 20); at N_MG^3 (16^3; tile 8, tol 1e-5, the cheaper
+     MG_CHEAP cycle) on the card against the CPU port, both converged
+     (phase 10's bound); --precond multigrid through the CLI at 32^3;
  24. the host connected components (cc_host_callback=True) on Path A
      untiled at 128^3: the device propagation's partition, n_regions and
      labels; the two forms timed alone (host clock, transfers included);
-     the step converged with A's launches.
+     the step converged with A's launches;
+ 25. the bf16 coefficient stack (coeff_bf16): each of the twelve kernels
+     that read the stack in its bf16 form (entry points
+     ps_<name>[_k<K>]_<f32|f64>_bf16, counted as <name>_bf16) against its
+     twin on the bf16 stack at phase 2's shapes and inputs, within
+     KERNEL_RTOL of max |twin|, timed as in phase 2 beside its f32 form,
+     its bound with the coefficient channels (COEFF_CHANNELS) at 2 bytes;
+     the bf16 reduced and uniform applies symmetric to SYM_RTOL and within
+     3 % of the f32 stack's; A, A_t, F and B with coeff_bf16 twice each
+     (converged, the bf16 forms' exact launches, bit-equal), R and F' once:
+     iterations, error and ms per apply beside the f32 paths';
+ 26. A-DEF2 deflation (k = 3584): A_t and B deflated at 128^3 and S16
+     (armadillo_melt_si 256^3 T16) at deflation_tile 32: E built twice,
+     bit-equal, with its setup seconds (DEFL_PROBES probe applies, the
+     assembly, the inverse); two deflated steps each, converged, captured
+     in the CUDA graph, bit-equal, with their launches (the probes, the
+     projected guess and one unfused apply a pass besides the path's own);
+     iterations, ms per apply and step seconds beside the undeflated
+     step's; a deflated 32^3 step (tile 8, tol 1e-5) on the card against
+     the CPU port (phase 10's bound).
 Every packed phase checks that check_pallas's fallback did not fire
 (packed_preflight) and that the packed layout takes its configuration.
 Phase 2 also holds the tile-dependent kernels (moments, expand,
@@ -293,6 +313,27 @@ BASIS_KERNELS = ("moments", "expand", "grid_mom_pap", "exp_finish_update")
 K4 = "_k4"
 MAIN_PATH.update({"moments_k4": "A_aff", "expand_k4": "A_aff", "grid_mom_pap_k4": "A_aff",
                   "exp_finish_update_k4": "F_aff"})
+# the bf16-storage forms (coeff_bf16): rows <name>_bf16 of the kernel
+# table, counted under that name, launched on the bf16 paths; each reads
+# these of its channels from the coefficient stack (or the reduced-face
+# masks), at 2 bytes a value in its bf16 form
+BF16 = "_bf16"
+COEFF_CHANNELS = {"moments": 10, "expand": 3, "apply_reduced": 14, "grid_mom_pap": 17, "finish": 7,
+                  "apply_uniform_pap": 14, "apply_uniform": 14, "transpose_u": 7, "forward_s": 7, "combine": 14,
+                  "finish_update": 7, "exp_finish_update": 10}
+COUNTERS = tuple(KERNELS) + tuple(k + BF16 for k in COEFF_CHANNELS)  # packed_apply.LAUNCHES' keys
+# the bf16 paths of phase 25 launch as their f32 counterparts, in the bf16 forms
+BF16_PATHS = {"A_bf16": "A", "A_t_bf16": "A", "F_bf16": "F", "B_bf16": "B_fused", "R_bf16": "A_region",
+              "F_prime_bf16": "F_prime"}
+MAIN_PATH.update({"moments_bf16": "A_bf16", "expand_bf16": "A_bf16", "apply_reduced_bf16": "A_bf16",
+                  "grid_mom_pap_bf16": "A_bf16", "finish_bf16": "A_bf16", "apply_uniform_pap_bf16": "B_bf16",
+                  "apply_uniform_bf16": "B_bf16", "transpose_u_bf16": "R_bf16", "forward_s_bf16": None,
+                  "combine_bf16": None, "finish_update_bf16": "F_prime_bf16", "exp_finish_update_bf16": "F_bf16"})
+# the deflated paths of phase 26: the 189 probe applies of E, the projected
+# guess, pcg_init's apply and deflated preconditioner, then per pass the
+# step's fused apply and the preconditioner's unfused apply
+DEFL_PROBES = 189
+DEFL_PATHS = {"A_t_defl": "A_defl", "S16_defl": "A_defl", "B_defl": "B_defl"}
 TILE_8 = 8
 N_SI = 256
 # the JAX suite's TPU records (BENCH_SUITE.json), printed beside ours, not held
@@ -411,23 +452,37 @@ def graph_ms(fn, n=20, reps=5):
     return statistics.median(times)
 
 
-def bound(name, plane, small_bytes, itemsize, kind="arrow"):
+def bound(name, plane, small_bytes, itemsize, kind="arrow", stored_itemsize=None):
     """(ms, 'bytes' or 'operations'): the larger of the HBM time of the
     channels the kernel must read and write once (plus its small per-cube
     arrays) and the float32 time of its flops; an update kernel reads the
-    factor channels of its preconditioner kind."""
+    factor channels of its preconditioner kind.  ``stored_itemsize`` (2:
+    the bf16 form) is the size of a value of the coefficient channels."""
     _, _, read, written, flops = KERNELS[name]
     if name in ("cg_update", "finish_update", "exp_finish_update"):
         read += UPDATE_FACTORS[kind] - UPDATE_FACTORS["arrow"]
-    t_bytes = ((read + written) * plane * itemsize + small_bytes) / HBM_BYTES_PER_S
+    stored = 0 if stored_itemsize is None else COEFF_CHANNELS[name] * (itemsize - stored_itemsize)
+    t_bytes = (((read + written) * itemsize - stored) * plane + small_bytes) / HBM_BYTES_PER_S
     t_ops = flops * plane / F32_FLOPS_PER_S
     return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
 
 
 def expected_launches(path, applies):
-    counts = dict.fromkeys(KERNELS, 0)
-    path = {**TILED_PATHS, **AFFINE_PATHS}.get(path, path)
-    if path == "A":
+    if path in BF16_PATHS:  # the same counts, of the bf16 forms
+        counts = expected_launches(BF16_PATHS[path], applies)
+        for name in COEFF_CHANNELS:
+            counts[name + BF16], counts[name] = counts[name], 0
+        return counts
+    counts = dict.fromkeys(COUNTERS, 0)
+    path = {**TILED_PATHS, **AFFINE_PATHS, **DEFL_PATHS}.get(path, path)
+    if path == "A_defl":
+        # the apply of the probes, the guess, pcg_init and every preconditioner
+        unfused = DEFL_PROBES + 3 + (applies - 1)
+        counts.update(moments=unfused, apply_reduced=unfused, expand=unfused + applies - 1,
+                      grid_mom_pap=applies - 1, finish=applies - 1)
+    elif path == "B_defl":
+        counts.update(apply_uniform=DEFL_PROBES + 3 + (applies - 1), apply_uniform_pap=applies - 1)
+    elif path == "A":
         counts.update(moments=1, apply_reduced=1, expand=applies, grid_mom_pap=applies - 1, finish=applies - 1)
     elif path == "A_region":
         # each apply's solve adds moments, expand and transpose_u
@@ -565,13 +620,14 @@ def phase_18_fallback(grid, scene, p_a, cap=1500):
 # -- phases 22-24: FLIP, MULTIGRID and the host connected components, each a
 # function of the main path's 128^3 scene and parameters (phase 2's grid and
 # scene, phase 14's A_t parameters, phase 2's A)
-FLIP_FRAMES = 3
-MG_CHEAP = dict(mg_levels=3, mg_smooth_degree=2, mg_coarse_iters=2)  # phase 23's 32^3 card-against-CPU cycle
+FLIP_FRAMES = 2  # 3 before phases 25-26 took their time
+MG_CHEAP = dict(mg_levels=3, mg_smooth_degree=2, mg_coarse_iters=2)  # phase 23's card-against-CPU cycle
+N_MG = N_21  # phase 23's card-against-CPU size (32 before phases 25-26 took their time)
 FLIP_PARTS = ("p2g", "surface_from_particles", "step", "g2p_flip", "advect_particles", "reseed")
 
 
 def sum_launches(*counts):
-    return {name: sum(c[name] for c in counts) for name in KERNELS}
+    return {name: sum(c[name] for c in counts) for name in COUNTERS}
 
 
 def flip_run(label, grid, scene, p, frames, record):
@@ -653,7 +709,7 @@ def flip_run(label, grid, scene, p, frames, record):
               f"device memory {r['peak'] / 2**30:.3f} GiB; launches {r['launches']}", flush=True)
         if not (st["converged"] and st["error"] < 1e-3 and r["finite"]):
             fail(f"phase 22 {label} frame {r['frame']} did not converge cleanly or is not finite: {st}")
-        want = dict.fromkeys(KERNELS, 0) if r["fired"] else expected_launches("A_t", 1 + st["loop_passes"])
+        want = dict.fromkeys(COUNTERS, 0) if r["fired"] else expected_launches("A_t", 1 + st["loop_passes"])
         if r["launches"] != want:
             fail(f"phase 22 {label} frame {r['frame']}: launches {r['launches']}, expected {want}")
         if not r["fired"] and st["boundary_active"] != 0:
@@ -760,24 +816,24 @@ def phase_23_multigrid(grid, scene, p_t, table, u_t=None):
     for name in table:
         table[name]["launches_by_path"]["MG"] = 0
     del runs, v1, v2
-    # 32^3 card against CPU, both converged at tol 1e-5, with the JAX tests'
-    # cheaper cycle (MG_CHEAP): the default cycle costs the CPU 0.13 s an
-    # iteration there, for 900 iterations.  Unconverged, the two part by
+    # N_MG^3 card against CPU, both converged at tol 1e-5, with the JAX
+    # tests' cheaper cycle (MG_CHEAP): the default cycle costs the CPU 0.13 s
+    # an iteration at 32^3, for 900 iterations.  Unconverged, the two part by
     # more than the bound (0.4 % of max |v| after 200 iterations): the f32
     # hash noise of the power iteration follows sin's last bits, which the
     # card and the CPU round otherwise, so lambda_max and the cycle differ
     p32m = p_mg.replace(tile_size=TILE_8, tolerance=1e-5, max_iterations=20000, **MG_CHEAP)
     vel = {}
     for where in ("cuda", "cpu"):
-        g32, s32 = honey_coil(n=N_CPU, dtype=torch.float32, device=where)
+        g32, s32 = honey_coil(n=N_MG, dtype=torch.float32, device=where)
         t0 = time.perf_counter()
         v32, _, st32 = solver.step(g32, s32, p32m)
-        print(f"phase 23 MULTIGRID {N_CPU}^3 tile {TILE_8} {MG_CHEAP} on {where}: {time.perf_counter() - t0:.2f} s, "
+        print(f"phase 23 MULTIGRID {N_MG}^3 tile {TILE_8} {MG_CHEAP} on {where}: {time.perf_counter() - t0:.2f} s, "
               f"iterations {st32['iterations']}, error {st32['error']:.3e}, converged {st32['converged']}", flush=True)
         if not st32["converged"]:
-            fail(f"phase 23: the {N_CPU}^3 MULTIGRID step on {where} did not converge")
+            fail(f"phase 23: the {N_MG}^3 MULTIGRID step on {where} did not converge")
         vel[where] = [t.double().cpu() for t in v32]
-    agree(f"phase 23 MULTIGRID {N_CPU}^3 velocities, card against CPU", vel["cuda"], vel["cpu"])
+    agree(f"phase 23 MULTIGRID {N_MG}^3 velocities, card against CPU", vel["cuda"], vel["cpu"])
     run_cli("phase 23 CLI --precond multigrid", ["--scene", "honey_coil", "--n", "32", "--precond", "multigrid"],
             "step", (0,))
     return s1, ms1, ms2
@@ -867,12 +923,16 @@ def main() -> None:
         by, bz = pa.grid_mom_plan(TILE)
         for name in ("grid_mom_pap", "moments"):
             window, blocks = pa.window_occupancy(name, dtype, by, bz)
+            blocks16 = pa.window_occupancy(name, dtype, by, bz, torch.bfloat16)[1]
             print(f"  {name} {dtype} at tile {TILE}: column {by} x {bz}, "
-                  f"{window} bytes dynamic shared memory, {blocks} blocks per SM", flush=True)
+                  f"{window} bytes dynamic shared memory, {blocks} blocks per SM ({blocks16} with the bf16 stack)",
+                  flush=True)
         for name in ("apply_reduced", "apply_uniform", "apply_uniform_pap"):
             window, blocks = pa.window_occupancy(name, dtype, *uniform_plan[:2])
+            blocks16 = pa.window_occupancy(name, dtype, *uniform_plan[:2], torch.bfloat16)[1]
             print(f"  {name} {dtype} at {N_MAIN}^3: column {uniform_plan[0]} x {uniform_plan[1]}, run "
-                  f"{uniform_plan[2]}, {window} bytes dynamic shared memory, {blocks} blocks per SM", flush=True)
+                  f"{uniform_plan[2]}, {window} bytes dynamic shared memory, {blocks} blocks per SM ({blocks16} with "
+                  f"the bf16 stack)", flush=True)
 
     # -- phase 2: each kernel against its twin at the main-path shapes
     t0 = time.perf_counter()
@@ -919,9 +979,10 @@ def main() -> None:
         "combine": (lambda: pa.combine_packed(xp, coeffs, s_twin, u_twin),
                     lambda: pa.combine_packed_plain(xp, coeffs, s_twin, u_twin), 0),
     }
-    def measure(name, kernel, twin, small_bytes, kind=None, slots=plane, where=""):
+    def measure(name, kernel, twin, small_bytes, kind=None, slots=plane, where="", stored_itemsize=None):
         """Compare a kernel with its twin, time both and reckon its bound
-        over ``slots`` slots of each channel."""
+        over ``slots`` slots of each channel (the coefficient channels at
+        ``stored_itemsize`` bytes a value where given)."""
         label = (name if kind is None else f"{name} kind {kind}") + where
         got, ref = kernel(), twin()
         torch.cuda.synchronize()
@@ -929,7 +990,7 @@ def main() -> None:
         ms_twin = median_ms(twin)
         ms_kernel = median_ms(kernel)
         ms_device = graph_ms(kernel)
-        bound_ms, bound_by = bound(name, slots, small_bytes, xp.element_size(), kind or "arrow")
+        bound_ms, bound_by = bound(name, slots, small_bytes, xp.element_size(), kind or "arrow", stored_itemsize)
         print(f"phase 2 {label}: kernel {ms_kernel:.4f} ms (device {ms_device:.4f} ms) twin {ms_twin:.4f} ms "
               f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms_kernel:.1f} % of the bound "
               f"({100 * bound_ms / ms_device:.1f} % on device time)", flush=True)
@@ -1435,6 +1496,7 @@ def main() -> None:
               f"({before / 2**30:.3f} GiB held before them)", flush=True)
         if label == "S16":
             s16 = (vel_s, st, peak, t_set)  # phase 17 holds the cropped solve against it
+            s16_stats = st  # phase 26 sets the deflated S16 beside it
         del vel_s
     p32t = params(torch.float32, 1e-5, 12000, fuse_pap=True, do_tile=True, tile_size=TILE_8)
     print(f"phase 14 tiled {N_CPU}^3 tile {TILE_8}, card and CPU:", flush=True)
@@ -1757,22 +1819,10 @@ def main() -> None:
         fail(f"phase 17: the cropped operator or right-hand side differs from the full one's: {d_r}, {d_r_out}")
     if not d_wb <= CROP_RTOL * wmax:
         fail(f"phase 17: the cropped write-back differs from the full one's: {d_wb} > {CROP_RTOL} * {wmax}")
-    # how far tol 1e-3 resolves the velocities at this scene: S16 and the
-    # cropped solve again at tol 1e-5 (each 1e-3 solve against them)
-    p5 = p_c.replace(tolerance=1e-5)
-    v_f5, _, s_f5 = solver.step(grid_si, scene_si, p5)
-    v_c5, _, s_c5 = domain.solve_cropped(grid_si, scene_si, p5)
-
-    def d_box(va, vb):
-        return max(float((va[a][tuple(slice(lo[i], hi[i] + (i == a)) for i in range(3))] -
-                          vb[a][tuple(slice(lo[i], hi[i] + (i == a)) for i in range(3))]).abs().max())
-                   for a in range(3)) / vmax
-
-    print(f"phase 17 at tol 1e-5: S16 {s_f5['iterations']} iterations (converged {s_f5['converged']}), cropped "
-          f"{s_c5['iterations']} (converged {s_c5['converged']}); inside the box, over max|v| of S16: cropped "
-          f"against S16 {d_box(v_c5, v_f5):.3e} at tol 1e-5 ({d_in / vmax:.3e} at 1e-3); S16 at 1e-3 against S16 at "
-          f"1e-5 {d_box(vel_s16, v_f5):.3e}; cropped at 1e-3 against S16 at 1e-5 {d_box(v1, v_f5):.3e}", flush=True)
-    del v1, v_f5, v_c5, vel_s16, s16
+    # (how far tol 1e-3 resolves this scene's velocities, S16 and the cropped
+    # solve again at tol 1e-5, is recorded in PERF.md section 7 and no longer
+    # re-solved here, to leave time for phases 25-26)
+    del v1, vel_s16, s16
 
     # -- phase 18: the other solvers.  At 32^3 on the card against the CPU
     # port in fp64 (in f32 this BiCGStab meets its tol-1e-5 test only by
@@ -1837,7 +1887,10 @@ def main() -> None:
                 ("crop chunked", base + ["--crop", "--chunked"], "step", (0,)),
                 ("sim", base + ["--sim", "--steps", "2"], "frame", (0, 1)),
                 ("pallas", base + ["--pallas"], "step", (0,)),
-                ("profile", base + ["--profile"], "step", (0,)))
+                ("profile", base + ["--profile"], "step", (0,)),
+                ("bf16-coeffs pallas", base + ["--bf16-coeffs", "--pallas"], "step", (0,)),
+                ("deflation", base + ["--deflation"], "step", (0,)),
+                ("deflation pallas", base + ["--deflation", "--pallas"], "step", (0,)))
         for label, argv, word, ks in runs:
             run_cli(f"phase 19 CLI {label}", argv, word, ks)
 
@@ -1980,6 +2033,133 @@ def main() -> None:
     phase_22_flip(grid, scene, p_t, table, p32t)
     phase_23_multigrid(grid, scene, p_t, table, ut1)
     phase_24_host_cc(grid, scene, p_a, table)
+
+    # -- phase 25: the bf16 coefficient stack (coeff_bf16).  Each bf16 form
+    # against its twin on the bf16 stack at phase 2's shapes and inputs,
+    # timed as there, its bound with the coefficient channels at 2 bytes,
+    # beside its f32 form; the bf16 applies' symmetry at 128^3; the bf16
+    # paths with their launches
+    bf = torch.bfloat16
+    c16, cu16, red16 = pa.pack_coeffs(asm, cls, storage_dtype=bf), pa.pack_coeffs(asm_u, storage_dtype=bf), red.to(bf)
+    gen25 = torch.Generator(device=dev).manual_seed(25)
+    r25, q25 = ((torch.randn((7,) + grid.res, generator=gen25, device=dev) * mask).contiguous() for _ in range(2))
+    f25 = pa.pack_arrow_factors(solver.precond_factors_packed(grid, cls, asm, p_a))
+    v25 = algebra(pa.moments_packed_plain(xp, c16, TILE))
+    u25 = pa.expand_packed_plain(v25, red16, TILE)
+    og25 = pa.grid_mom_pap_packed_plain(xp, c16, TILE)[0]
+    s25 = pa.forward_s_packed_plain(xp, c16)
+    cases25 = {
+        "moments": (lambda: pa.moments_packed(xp, c16, TILE), lambda: pa.moments_packed_plain(xp, c16, TILE), mom_bytes),
+        "expand": (lambda: pa.expand_packed(v25, red16, TILE), lambda: pa.expand_packed_plain(v25, red16, TILE),
+                   mom_bytes),
+        "apply_reduced": (lambda: pa.apply_reduced_packed(xp, c16, u25),
+                          lambda: pa.apply_reduced_packed_plain(xp, c16, u25), 0),
+        "grid_mom_pap": (lambda: pa.grid_mom_pap_packed(xp, c16, TILE), lambda: pa.grid_mom_pap_packed_plain(xp, c16, TILE),
+                         2 * mom_bytes),
+        "finish": (lambda: pa.finish_packed(c16, og25, u25), lambda: pa.finish_packed_plain(c16, og25, u25), 0),
+        "apply_uniform_pap": (lambda: pa.apply_uniform_pap_packed(xu, cu16),
+                              lambda: pa.apply_uniform_pap_packed_plain(xu, cu16), 0),
+        "apply_uniform": (lambda: pa.apply_uniform_packed(xu, cu16), lambda: pa.apply_uniform_packed_plain(xu, cu16), 0),
+        "transpose_u": (lambda: pa.transpose_u_packed(c16, u25), lambda: pa.transpose_u_packed_plain(c16, u25), 0),
+        "forward_s": (lambda: pa.forward_s_packed(xp, c16), lambda: pa.forward_s_packed_plain(xp, c16), 0),
+        "combine": (lambda: pa.combine_packed(xp, c16, s25, u25), lambda: pa.combine_packed_plain(xp, c16, s25, u25), 0),
+        "finish_update": (lambda: pa.finish_update_packed(xp, r25, q25, alpha, c16, og25, u25, f25, "arrow"),
+                          lambda: pa.finish_update_packed_plain(xp, r25, q25, alpha, c16, og25, u25, f25, "arrow"), 0),
+        "exp_finish_update": (
+            lambda: pa.exp_finish_update_packed(xp, r25, q25, alpha, c16, og25, v25, TILE, f25, "arrow"),
+            lambda: pa.exp_finish_update_packed_plain(xp, r25, q25, alpha, c16, og25, v25, TILE, f25, "arrow"), mom_bytes),
+    }
+    for name, (kernel, twin, small_bytes) in cases25.items():
+        kind = "arrow" if name in ("finish_update", "exp_finish_update") else None
+        before = dict(pa.LAUNCHES)
+        kernel()
+        torch.cuda.synchronize()
+        if pa.LAUNCHES[name + BF16] != before[name + BF16] + 1 or pa.LAUNCHES[name] != before[name]:
+            fail(f"phase 25 {name}: the bf16 stack did not launch the bf16 form")
+        m = measure(name, kernel, twin, small_bytes, kind, where=" bf16", stored_itemsize=2)
+        f32 = table[name]
+        src, replaces = KERNELS[name][:2]
+        table[name + BF16] = {"name": name + BF16, "route": "cuda", "source": f"polystokes_tpu_torch/csrc/{src}",
+                              "replaces": replaces, "storage": "bfloat16 coefficient stack", "launches": None, **m,
+                              "library_ms": None, "launches_by_path": {}, "f32_device_ms": f32["device_ms"],
+                              "f32_bound_ms": f32["bound_ms"]}
+        print(f"phase 25 {name}: bf16 device {m['device_ms']:.4f} ms against f32 {f32['device_ms']:.4f} ms "
+              f"({m['device_ms'] / f32['device_ms']:.3f}x); bound {m['bound_ms']:.4f} ms against {f32['bound_ms']:.4f}",
+              flush=True)
+    del cases25, kernel, twin
+    for label, p, x, y, c_cls, c_asm in (("reduced", p_a, xp, yp, cls, asm), ("uniform", p_b, xu, yu, cls_u, asm_u)):
+        r_ = effective_max_regions(grid, p)
+        a16 = solver.make_apply_packed(grid, c_cls, c_asm, p.replace(coeff_bf16=True), r_)
+        a32 = solver.make_apply_packed(grid, c_cls, c_asm, p, r_)
+        ax16, ax32 = a16(x), a32(x)
+        y_ax = float((y.double() * ax16.double()).sum())
+        ay_x = float((a16(y).double() * x.double()).sum())
+        asym, d16 = abs(y_ax - ay_x) / abs(y_ax), float((ax16 - ax32).abs().max()) / float(ax32.abs().max())
+        print(f"phase 25 {label} bf16 apply: symmetry rel {asym:.3e}; against the f32 stack's apply rel {d16:.3e}",
+              flush=True)
+        if not (asym <= SYM_RTOL and d16 < 0.03):
+            fail(f"phase 25 {label} bf16 apply: symmetry {asym}, distance from f32 {d16}")
+    bf16_runs = {}
+    for path, p, repeat, base in (("A_bf16", p_a, True, st1), ("A_t_bf16", p_t, True, sa1), ("F_bf16", p_f, True, sf1),
+                                  ("B_bf16", p_b, True, sb1), ("R_bf16", p_r, False, sr1),
+                                  ("F_prime_bf16", p_f.replace(fuse_expand=False), False, None)):
+        p16 = p.replace(coeff_bf16=True)
+        n_check = (lambda n: n == 0) if path == "B_bf16" else (lambda n: n >= 1)
+        runs = [drive(f"phase 25 {path} {N_MAIN}^3 run {i + 1}", p16, n_check) for i in range(2 if repeat else 1)]
+        for vel_, st_, l_ in runs:
+            check_launches(path, f"phase 25 {path}", st_, l_)
+        if repeat:
+            check_repeat(f"phase 25 {path}", runs[0][0], runs[0][1], runs[1][0], runs[1][1])
+        st16 = runs[0][1]
+        bf16_runs[path] = st16
+        if base is not None:
+            ms = " ".join(f"{r[1]['ms_per_apply']:.4f}" for r in runs)
+            print(f"phase 25 {path} against f32: iterations {st16['iterations']} ({base['iterations']}), error "
+                  f"{st16['error']:.3e} ({base['error']:.3e}), ms per apply {ms} ({base['ms_per_apply']:.4f})", flush=True)
+    del c16, cu16, red16, r25, q25, f25, v25, u25, og25, s25
+
+    # -- phase 26: A-DEF2 deflation (k = 3584) on A_t, B and S16 at
+    # deflation_tile 32: E built twice bit-equal, its setup seconds; two
+    # deflated steps each, converged, graphed, bit-equal, with their launches;
+    # iterations and ms per apply beside the undeflated step's; a deflated
+    # 32^3 step on the card against the CPU
+    for path, p, case, base in (("A_t_defl", p_t, (grid, scene), sa1), ("B_defl", p_b, (grid, scene), sb1),
+                                ("S16_defl", solver.sample_density(scene_si, p_t).replace(deflation_tile=32),
+                                 (grid_si, scene_si), s16_stats)):
+        pd = p.replace(deflation=True)
+        g, sc = case
+        c_cls, c_asm = solver._setup(g, sc, pd)
+        builds = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = solver._make_deflation(g, c_cls, c_asm, pd)
+            torch.cuda.synchronize()
+            builds.append((d, time.perf_counter() - t0))
+        (d1, t1), (d2, t2) = builds
+        e_equal = torch.equal(d1.e, d2.e) and torch.equal(d1.einv, d2.einv)
+        print(f"phase 26 {path}: k {d1.e.shape[0]} (coarse lattice {d1.cs}, tile {d1.tile}), E built in {t1:.3f} and "
+              f"{t2:.3f} s ({DEFL_PROBES} probe applies, the assembly and the inverse), bit-equal {e_equal}", flush=True)
+        if not e_equal or d1.e.shape[0] != 3584:
+            fail(f"phase 26 {path}: E differs between two builds or k != 3584")
+        del builds, d1, d2, d, c_cls, c_asm
+        runs = [drive(f"phase 26 {path} timed {i + 1}", pd, (lambda n: n == 0) if path == "B_defl" else (lambda n: n >= 1),
+                      case) for i in range(2)]
+        for vel_, st_, l_ in runs:
+            check_launches(path, f"phase 26 {path}", st_, l_, record=False)
+            if not st_["capture_seconds"] > 0.0:
+                fail(f"phase 26 {path}: the deflated pass was not captured in a CUDA graph")
+        check_repeat(f"phase 26 {path}", runs[0][0], runs[0][1], runs[1][0], runs[1][1])
+        st_d = runs[0][1]
+        print(f"phase 26 {path} against undeflated: iterations {st_d['iterations']} ({base['iterations']}), ms per "
+              f"apply {runs[0][1]['ms_per_apply']:.4f} {runs[1][1]['ms_per_apply']:.4f} ({base['ms_per_apply']:.4f}), "
+              f"step s {runs[0][1]['seconds']:.3f} {runs[1][1]['seconds']:.3f} ({base['seconds']:.3f}), capture "
+              f"{st_d['capture_seconds']:.3f} s, peak device memory {st_d['peak_gib']:.3f} GiB", flush=True)
+        del runs
+    p32d = p32t.replace(deflation=True)
+    print(f"phase 26 deflated {N_CPU}^3 tile {TILE_8}, card and CPU:", flush=True)
+    agree(f"phase 26 deflated {N_CPU}^3 tile {TILE_8} velocities, card against CPU", step_32("cuda", p32d),
+          step_32("cpu", p32d))
 
     for name, entry in table.items():
         if MAIN_PATH[name] is None:

@@ -80,8 +80,6 @@ _UNSUPPORTED = (
     ("matrix_scheme", (MatrixScheme.PRESSURE_STRESS,), "Queue 1 item 13 (host explicit schemes)"),
     ("solver_type", (SolverType.PCG_MATRIX_VECTOR_PRODUCTS, SolverType.BICGSTAB, SolverType.MINRES),
      "Queue 1 item 13 (host explicit schemes)"),
-    ("deflation", (False,), "Queue 1 item 15 (deflation)"),
-    ("coeff_bf16", (False,), "Queue 1 item 15 (bf16 coefficients)"),
     ("export_matrices", (False,), "Queue 1 item 13 (export)"),
     ("export_component_matrices", (False,), "Queue 1 item 13 (export)"),
     ("export_stats", (False,), "Queue 1 item 13 (export)"),

@@ -66,6 +66,18 @@
 //   asks for 4 blocks per SM (64 registers a thread), so the 512 cubes of
 //   128^3 at T 16 are one wave on 132 SMs; the others for 2.
 //
+// The bf16-storage forms (coeff_bf16, pack_coeffs storage_dtype in
+//   polystokes_tpu/pallas_apply.py): every kernel here also exists with the
+//   stack in bf16 (template argument C), its values converted to T as they
+//   are loaded (stencil.cuh ldc).  The window keeps g, h and w, products of
+//   a coefficient and x, in T: staging them in C would round them, and the
+//   window's bytes, so the blocks per SM of the launch bounds above (4 for
+//   WINDOW_MOM in f32, 64 registers, no spill with either stack), stay
+//   those of the f32 form.  Bounds fall with the coefficient channels at 2
+//   bytes: grid_mom_pap 90 bytes a slot against 124 (0.056 ms at 128^3),
+//   moments 48 against 68, apply_reduced 96 against 124, the uniform
+//   kernels 84 against 112, finish 82 against 96.
+//
 // finish_kernel replaces finish_packed (_finish_kernel, _transpose_contrib).
 //   out = out_grid + [G Dt]^T (-u): the reduced branch, no mass terms (they
 //   are in out_grid).  Bound: 17 channels read (c[:7], out_grid, u), 7
@@ -97,9 +109,12 @@ inline int window_bytes(int mode, int by, int bz, int itemsize) {
 // keeps two).
 // K: the basis's monomials, read by the moment modes only (the apply modes
 // exist for K = 10 alone).
-template <typename T, int MODE, int K = K_QUADRATIC>
+// C: the coefficient stack's storage type (T, or bf16 under coeff_bf16),
+// converted to T as it is loaded; the window holds g, h and w, products in
+// T, so its size and the blocks per SM do not depend on C.
+template <typename T, int MODE, int K = K_QUADRATIC, typename C = T>
 __global__ void __launch_bounds__(kThreads, MODE == WINDOW_MOM && sizeof(T) == 4 ? 4 : 2)
-plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* __restrict__ u, T* __restrict__ out,
+plane_window_kernel(const T* __restrict__ x, const C* __restrict__ c, const T* __restrict__ u, T* __restrict__ out,
                     T* __restrict__ mom, T* __restrict__ partials, Dims d, int run) {
   // MOM: the moments, on columns of one cube; OUT: A x, through w
   constexpr bool MOM = MODE == WINDOW_GRID_MOM || MODE == WINDOW_MOM;
@@ -136,7 +151,7 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* _
     const bool in = d.inside(i, jj, kk);
     const long long q = in ? d.at(i, jj, kk) : 0;
     const int r = rj * rz + rk;
-    const T p = __ldg(x + q), clw = __ldg(c + C_CLW * d.plane + q);
+    const T p = __ldg(x + q), clw = ldc<T>(c + C_CLW * d.plane + q);
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const T g = clw * (p - __ldg(x + (1 + a) * d.plane + q));
@@ -144,7 +159,7 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* _
     }
 #pragma unroll
     for (int e = 0; e < 3; ++e) {
-      const T h = __ldg(c + (C_ELW + e) * d.plane + q) * __ldg(x + (4 + e) * d.plane + q);
+      const T h = ldc<T>(c + (C_ELW + e) * d.plane + q) * __ldg(x + (4 + e) * d.plane + q);
       gh_of(i, 3 + e)[r] = in ? h : T(0);
     }
   };
@@ -204,14 +219,14 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* _
     const long long q = in ? d.at(i, j, k) : 0;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
-      const T s = __ldg(c + (C_FFW + a) * d.plane + q) * s_over_ffw(i, a, own);
+      const T s = ldc<T>(c + (C_FFW + a) * d.plane + q) * s_over_ffw(i, a, own);
       if constexpr (OUT) {
         const T w = w_from_s(a, q, s);
         w_of(i, a)[own] = in ? w : T(0);
       }
       if constexpr (MOM) {
         const bool moment = i >= x0 && i < x_end;
-        const T sm = moment ? s * __ldg(c + (C_RED + a) * d.plane + q) : T(0);
+        const T sm = moment ? s * ldc<T>(c + (C_RED + a) * d.plane + q) : T(0);
         const T px = T(i - x0) + (a == 0 ? T(0.5) : T(0));
         sm_p[a][0] += sm;
         sm_p[a][1] += sm * px;
@@ -224,7 +239,7 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* _
     const int jj = y0 - 1 + rj, kk = z0 - 1 + rk, r = rj * rz + rk;
     const bool in = d.inside(i, jj, kk);
     const long long q = in ? d.at(i, jj, kk) : 0;
-    const T s = __ldg(c + (C_FFW + a) * d.plane + q) * s_over_ffw(i, a, r);
+    const T s = ldc<T>(c + (C_FFW + a) * d.plane + q) * s_over_ffw(i, a, r);
     const T w = w_from_s(a, q, s);
     w_of(i, a)[r] = in ? w : T(0);
   };
@@ -375,9 +390,9 @@ plane_window_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* _
   }
 }
 
-template <typename T>
+template <typename T, typename C = T>
 __global__ void __launch_bounds__(kThreads)
-finish_kernel(const T* __restrict__ c, const T* __restrict__ out_grid, const T* __restrict__ u, T* __restrict__ out, Dims d) {
+finish_kernel(const C* __restrict__ c, const T* __restrict__ out_grid, const T* __restrict__ u, T* __restrict__ out, Dims d) {
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= d.plane) return;
   const int k = (int)(q % d.nz), j = (int)((q / d.nz) % d.ny), i = (int)(q / ((long long)d.nz * d.ny));
@@ -395,47 +410,48 @@ finish_kernel(const T* __restrict__ c, const T* __restrict__ out_grid, const T* 
 // memory a block gets by default needs the kernel's opt-in, up to what the
 // device allows (227 KB a block on the H100, room for every column of 256
 // slots in f64); a window beyond that is refused here and the launch fails.
-template <typename T, int MODE, int K = K_QUADRATIC>
+template <typename T, int MODE, int K = K_QUADRATIC, typename C = T>
 cudaError_t window_opt_in(int bytes) {
   static const int static_bytes = [] {
     cudaFuncAttributes attr{};
-    return cudaFuncGetAttributes(&attr, plane_window_kernel<T, MODE, K>) == cudaSuccess ? (int)attr.sharedSizeBytes : 0;
+    return cudaFuncGetAttributes(&attr, plane_window_kernel<T, MODE, K, C>) == cudaSuccess ? (int)attr.sharedSizeBytes : 0;
   }();
   if (static_bytes + bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(plane_window_kernel<T, MODE, K>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  return cudaFuncSetAttribute(plane_window_kernel<T, MODE, K, C>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 // One launch of plane_window_kernel: by x bz columns over runs of `run`
 // planes (the moment modes: run = tile, and the column divides the cube;
-// K monomials).
-template <typename T, int MODE, int K = K_QUADRATIC>
-int plane_window(const T* x, const T* c, const T* u, T* out, T* mom, T* partials, int nx, int ny, int nz, int run, int by,
+// K monomials; the stack stored in C).
+template <typename T, int MODE, int K = K_QUADRATIC, typename C = T>
+int plane_window(const T* x, const C* c, const T* u, T* out, T* mom, T* partials, int nx, int ny, int nz, int run, int by,
                  int bz, cudaStream_t stream) {
   if (by < 1 || bz < 1 || by * bz > kThreads || run < 1) return (int)cudaErrorInvalidValue;
   if ((MODE == WINDOW_GRID_MOM || MODE == WINDOW_MOM) && (run % by || run % bz)) return (int)cudaErrorInvalidValue;
   const int bytes = window_bytes(MODE, by, bz, (int)sizeof(T));
-  const cudaError_t err = window_opt_in<T, MODE, K>(bytes);
+  const cudaError_t err = window_opt_in<T, MODE, K, C>(bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((nz + bz - 1) / bz), (unsigned)((ny + by - 1) / by), (unsigned)((nx + run - 1) / run));
-  plane_window_kernel<T, MODE, K><<<grid, dim3(bz, by), bytes, stream>>>(x, c, u, out, mom, partials, dims(nx, ny, nz), run);
+  plane_window_kernel<T, MODE, K, C><<<grid, dim3(bz, by), bytes, stream>>>(x, c, u, out, mom, partials, dims(nx, ny, nz), run);
   return (int)cudaGetLastError();
 }
 
 // Thread blocks of plane_window_kernel resident on one SM at the column
 // (by, bz), from the CUDA occupancy calculator; negative: a CUDA error.
-template <typename T, int MODE>
+template <typename T, int MODE, typename C = T>
 int window_blocks_per_sm(int by, int bz) {
   const int bytes = window_bytes(MODE, by, bz, (int)sizeof(T));
-  cudaError_t err = window_opt_in<T, MODE>(bytes);
+  cudaError_t err = window_opt_in<T, MODE, K_QUADRATIC, C>(bytes);
   int n = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, plane_window_kernel<T, MODE>, by * bz, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, plane_window_kernel<T, MODE, K_QUADRATIC, C>, by * bz, bytes);
   return err == cudaSuccess ? n : -(int)err;
 }
 
-template <typename T>
-int finish(const T* c, const T* out_grid, const T* u, T* out, int nx, int ny, int nz, cudaStream_t stream) {
+template <typename T, typename C>
+int finish(const C* c, const T* out_grid, const T* u, T* out, int nx, int ny, int nz, cudaStream_t stream) {
   const Dims d = dims(nx, ny, nz);
-  finish_kernel<T><<<blocks_for(d.plane), kThreads, 0, stream>>>(c, out_grid, u, out, d);
+  finish_kernel<T, C><<<blocks_for(d.plane), kThreads, 0, stream>>>(c, out_grid, u, out, d);
   return (int)cudaGetLastError();
 }
 
@@ -443,70 +459,68 @@ int finish(const T* c, const T* out_grid, const T* u, T* out, int nx, int ny, in
 
 extern "C" {
 
-// the moment modes for each basis: ps_grid_mom_pap_k10_* and ps_moments_k10_*
-// (quadratic), ps_grid_mom_pap_k4_* and ps_moments_k4_* (affine)
-#define PS_MOMENT_MODES(K, TAG, T) \
-  int ps_grid_mom_pap_k##K##_##TAG(const T* x, const T* c, T* out, T* mom, T* partials, int nx, int ny, int nz, int tile, \
+// Every entry point exists for f32 and f64 compute (TAG) with the stack
+// stored in the compute type (ps_<name>[_k<K>]_<TAG>) or in bf16
+// (ps_<name>[_k<K>]_<TAG>_bf16, coeff_bf16); the moment modes for each
+// basis: _k10_ (quadratic) and _k4_ (affine).
+#define PS_MOMENT_MODES(K, TAG, T, C) \
+  int ps_grid_mom_pap_k##K##_##TAG(const T* x, const C* c, T* out, T* mom, T* partials, int nx, int ny, int nz, int tile, \
                                    int by, int bz, cudaStream_t s) { \
-    return ps::plane_window<T, ps::WINDOW_GRID_MOM, K>(x, c, nullptr, out, mom, partials, nx, ny, nz, tile, by, bz, s); \
+    return ps::plane_window<T, ps::WINDOW_GRID_MOM, K, C>(x, c, nullptr, out, mom, partials, nx, ny, nz, tile, by, bz, s); \
   } \
-  int ps_moments_k##K##_##TAG(const T* x, const T* c, T* mom, int nx, int ny, int nz, int tile, int by, int bz, \
+  int ps_moments_k##K##_##TAG(const T* x, const C* c, T* mom, int nx, int ny, int nz, int tile, int by, int bz, \
                               cudaStream_t s) { \
-    return ps::plane_window<T, ps::WINDOW_MOM, K>(x, c, nullptr, nullptr, mom, nullptr, nx, ny, nz, tile, by, bz, s); \
+    return ps::plane_window<T, ps::WINDOW_MOM, K, C>(x, c, nullptr, nullptr, mom, nullptr, nx, ny, nz, tile, by, bz, s); \
   }
-PS_MOMENT_MODES(10, f32, float)
-PS_MOMENT_MODES(10, f64, double)
-PS_MOMENT_MODES(4, f32, float)
-PS_MOMENT_MODES(4, f64, double)
-#undef PS_MOMENT_MODES
-int ps_finish_f32(const float* c, const float* out_grid, const float* u, float* out, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::finish(c, out_grid, u, out, nx, ny, nz, s);
-}
-int ps_finish_f64(const double* c, const double* out_grid, const double* u, double* out, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::finish(c, out_grid, u, out, nx, ny, nz, s);
-}
-int ps_apply_reduced_f32(const float* x, const float* c, const float* u, float* out, int nx, int ny, int nz, int by, int bz,
-                         int run, cudaStream_t s) {
-  return ps::plane_window<float, ps::WINDOW_REDUCED>(x, c, u, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
-}
-int ps_apply_reduced_f64(const double* x, const double* c, const double* u, double* out, int nx, int ny, int nz, int by, int bz,
-                         int run, cudaStream_t s) {
-  return ps::plane_window<double, ps::WINDOW_REDUCED>(x, c, u, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
-}
-int ps_apply_uniform_f32(const float* x, const float* c, float* out, int nx, int ny, int nz, int by, int bz, int run,
-                         cudaStream_t s) {
-  return ps::plane_window<float, ps::WINDOW_UNIFORM>(x, c, nullptr, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
-}
-int ps_apply_uniform_f64(const double* x, const double* c, double* out, int nx, int ny, int nz, int by, int bz, int run,
-                         cudaStream_t s) {
-  return ps::plane_window<double, ps::WINDOW_UNIFORM>(x, c, nullptr, out, nullptr, nullptr, nx, ny, nz, run, by, bz, s);
-}
-int ps_apply_uniform_pap_f32(const float* x, const float* c, float* out, float* partials, int nx, int ny, int nz, int by, int bz,
-                             int run, cudaStream_t s) {
-  return ps::plane_window<float, ps::WINDOW_UNIFORM_PAP>(x, c, nullptr, out, nullptr, partials, nx, ny, nz, run, by, bz, s);
-}
-int ps_apply_uniform_pap_f64(const double* x, const double* c, double* out, double* partials, int nx, int ny, int nz, int by,
-                             int bz, int run, cudaStream_t s) {
-  return ps::plane_window<double, ps::WINDOW_UNIFORM_PAP>(x, c, nullptr, out, nullptr, partials, nx, ny, nz, run, by, bz, s);
-}
+#define PS_WINDOW_FORMS(TAG, T, C) \
+  PS_MOMENT_MODES(10, TAG, T, C) \
+  PS_MOMENT_MODES(4, TAG, T, C) \
+  int ps_finish_##TAG(const C* c, const T* out_grid, const T* u, T* out, int nx, int ny, int nz, cudaStream_t s) { \
+    return ps::finish(c, out_grid, u, out, nx, ny, nz, s); \
+  } \
+  int ps_apply_reduced_##TAG(const T* x, const C* c, const T* u, T* out, int nx, int ny, int nz, int by, int bz, int run, \
+                             cudaStream_t s) { \
+    return ps::plane_window<T, ps::WINDOW_REDUCED, ps::K_QUADRATIC, C>(x, c, u, out, nullptr, nullptr, nx, ny, nz, run, by, \
+                                                                      bz, s); \
+  } \
+  int ps_apply_uniform_##TAG(const T* x, const C* c, T* out, int nx, int ny, int nz, int by, int bz, int run, cudaStream_t s) { \
+    return ps::plane_window<T, ps::WINDOW_UNIFORM, ps::K_QUADRATIC, C>(x, c, nullptr, out, nullptr, nullptr, nx, ny, nz, run, \
+                                                                      by, bz, s); \
+  } \
+  int ps_apply_uniform_pap_##TAG(const T* x, const C* c, T* out, T* partials, int nx, int ny, int nz, int by, int bz, \
+                                 int run, cudaStream_t s) { \
+    return ps::plane_window<T, ps::WINDOW_UNIFORM_PAP, ps::K_QUADRATIC, C>(x, c, nullptr, out, nullptr, partials, nx, ny, \
+                                                                          nz, run, by, bz, s); \
+  } \
+  int ps_grid_mom_pap_blocks_per_sm_##TAG(int by, int bz) { \
+    return ps::window_blocks_per_sm<T, ps::WINDOW_GRID_MOM, C>(by, bz); \
+  } \
+  int ps_moments_blocks_per_sm_##TAG(int by, int bz) { return ps::window_blocks_per_sm<T, ps::WINDOW_MOM, C>(by, bz); } \
+  int ps_apply_reduced_blocks_per_sm_##TAG(int by, int bz) { \
+    return ps::window_blocks_per_sm<T, ps::WINDOW_REDUCED, C>(by, bz); \
+  } \
+  int ps_apply_uniform_blocks_per_sm_##TAG(int by, int bz) { \
+    return ps::window_blocks_per_sm<T, ps::WINDOW_UNIFORM, C>(by, bz); \
+  } \
+  int ps_apply_uniform_pap_blocks_per_sm_##TAG(int by, int bz) { \
+    return ps::window_blocks_per_sm<T, ps::WINDOW_UNIFORM_PAP, C>(by, bz); \
+  }
+// (the blocks per SM at the column (by, bz) of each kernel that marches
+// the window).  The bf16 forms are built from this file in a translation
+// unit of their own, fused_apply_bf16.cu, so that nvcc compiles the two
+// halves in parallel.
+#ifndef PS_FUSED_APPLY_BF16
+PS_WINDOW_FORMS(f32, float, float)
+PS_WINDOW_FORMS(f64, double, double)
 // the plane window's dynamic shared memory (of the kernel whose MODE is
-// `mode`) and blocks per SM at the column (by, bz), for each kernel that
-// marches it
+// `mode`) at the column (by, bz): the window holds T, whatever the stack
 int ps_window_bytes_f32(int by, int bz, int mode) { return ps::window_bytes(mode, by, bz, (int)sizeof(float)); }
 int ps_window_bytes_f64(int by, int bz, int mode) { return ps::window_bytes(mode, by, bz, (int)sizeof(double)); }
-int ps_grid_mom_pap_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_GRID_MOM>(by, bz); }
-int ps_grid_mom_pap_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_GRID_MOM>(by, bz); }
-int ps_moments_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_MOM>(by, bz); }
-int ps_moments_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_MOM>(by, bz); }
-int ps_apply_reduced_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_REDUCED>(by, bz); }
-int ps_apply_reduced_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_REDUCED>(by, bz); }
-int ps_apply_uniform_blocks_per_sm_f32(int by, int bz) { return ps::window_blocks_per_sm<float, ps::WINDOW_UNIFORM>(by, bz); }
-int ps_apply_uniform_blocks_per_sm_f64(int by, int bz) { return ps::window_blocks_per_sm<double, ps::WINDOW_UNIFORM>(by, bz); }
-int ps_apply_uniform_pap_blocks_per_sm_f32(int by, int bz) {
-  return ps::window_blocks_per_sm<float, ps::WINDOW_UNIFORM_PAP>(by, bz);
-}
-int ps_apply_uniform_pap_blocks_per_sm_f64(int by, int bz) {
-  return ps::window_blocks_per_sm<double, ps::WINDOW_UNIFORM_PAP>(by, bz);
-}
+#else
+PS_WINDOW_FORMS(f32_bf16, float, ps::bf16)
+PS_WINDOW_FORMS(f64_bf16, double, ps::bf16)
+#endif
+#undef PS_WINDOW_FORMS
+#undef PS_MOMENT_MODES
 
 }  // extern "C"

@@ -18,7 +18,10 @@
 //   the row (stencil.cuh row_poly, which expand_at and so
 //   exp_finish_update_kernel evaluate at one slot); a run with no reduced
 //   face loads no coefficient.  Templated on K: 10 for the quadratic basis,
-//   4 for the affine one (A + B z, 12 coefficients a cube instead of 30).
+//   4 for the affine one (A + B z, 12 coefficients a cube instead of 30),
+//   and on C, the masks' storage type: T, or bf16 under coeff_bf16, whose
+//   VEC masks of a run are VEC * 2 bytes (8 in f32, 4 in f64) read as one
+//   access aligned to that width (checked at launch beside u's 16 bytes).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -27,9 +30,9 @@
 
 namespace ps {
 
-template <typename T, int VEC, int K>
+template <typename T, int VEC, int K, typename C>
 __global__ void __launch_bounds__(kThreads)
-expand_kernel(const T* __restrict__ v, const T* __restrict__ red, T* __restrict__ u, Dims d, int tile) {
+expand_kernel(const T* __restrict__ v, const C* __restrict__ red, T* __restrict__ u, Dims d, int tile) {
   // thread: VEC consecutive z slots k0.. of row (i, j), all in one cube
   // (VEC divides tile); every axis
   const int k0 = (blockIdx.x * blockDim.x + threadIdx.x) * VEC;
@@ -43,7 +46,10 @@ expand_kernel(const T* __restrict__ v, const T* __restrict__ red, T* __restrict_
   using V = Vec<T, VEC>;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const V chi = *reinterpret_cast<const V*>(red + a * d.plane + q);
+    const Vec<C, VEC> stored = *reinterpret_cast<const Vec<C, VEC>*>(red + a * d.plane + q);
+    V chi;
+#pragma unroll
+    for (int s = 0; s < VEC; ++s) chi.v[s] = to_t<T>(stored.v[s]);
     bool any = false;
 #pragma unroll
     for (int s = 0; s < VEC; ++s) any = any || chi.v[s] != T(0);
@@ -67,18 +73,18 @@ expand_kernel(const T* __restrict__ v, const T* __restrict__ red, T* __restrict_
 template <typename T>
 constexpr int kVec = 16 / (int)sizeof(T);
 
-template <typename T, int K>
-int expand(const T* v, const T* red, T* u, int nx, int ny, int nz, int tile, int vec, int bx, int by, cudaStream_t stream) {
+template <typename T, int K, typename C>
+int expand(const T* v, const C* red, T* u, int nx, int ny, int nz, int tile, int vec, int bx, int by, cudaStream_t stream) {
   if ((vec != 1 && vec != kVec<T>) || nz % vec || tile % vec || bx < 1 || by < 1 || bx * by > kThreads ||
-      (vec > 1 && (reinterpret_cast<uintptr_t>(red) | reinterpret_cast<uintptr_t>(u)) % 16))
+      (vec > 1 && (reinterpret_cast<uintptr_t>(red) % (sizeof(C) * vec) || reinterpret_cast<uintptr_t>(u) % 16)))
     return (int)cudaErrorInvalidValue;
   const int nzv = nz / vec;
   const dim3 grid((unsigned)((nzv + bx - 1) / bx), (unsigned)((ny + by - 1) / by), (unsigned)nx);
   const Dims d = dims(nx, ny, nz);
   if (vec == 1)
-    expand_kernel<T, 1, K><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
+    expand_kernel<T, 1, K, C><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
   else
-    expand_kernel<T, kVec<T>, K><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
+    expand_kernel<T, kVec<T>, K, C><<<grid, dim3(bx, by), 0, stream>>>(v, red, u, d, tile);
   return (int)cudaGetLastError();
 }
 
@@ -86,16 +92,21 @@ int expand(const T* v, const T* red, T* u, int nx, int ny, int nz, int tile, int
 
 extern "C" {
 
-// ps_expand_k10_* (the quadratic basis) and ps_expand_k4_* (the affine one)
-#define PS_EXPAND(K, TAG, T) \
-  int ps_expand_k##K##_##TAG(const T* v, const T* red, T* u, int nx, int ny, int nz, int tile, int vec, int bx, int by, \
+// ps_expand_k10_* (the quadratic basis) and ps_expand_k4_* (the affine
+// one), the masks stored in T or (suffix _bf16) in bf16
+#define PS_EXPAND(K, TAG, T, C) \
+  int ps_expand_k##K##_##TAG(const T* v, const C* red, T* u, int nx, int ny, int nz, int tile, int vec, int bx, int by, \
                              cudaStream_t s) { \
-    return ps::expand<T, K>(v, red, u, nx, ny, nz, tile, vec, bx, by, s); \
+    return ps::expand<T, K, C>(v, red, u, nx, ny, nz, tile, vec, bx, by, s); \
   }
-PS_EXPAND(10, f32, float)
-PS_EXPAND(10, f64, double)
-PS_EXPAND(4, f32, float)
-PS_EXPAND(4, f64, double)
+PS_EXPAND(10, f32, float, float)
+PS_EXPAND(10, f64, double, double)
+PS_EXPAND(4, f32, float, float)
+PS_EXPAND(4, f64, double, double)
+PS_EXPAND(10, f32_bf16, float, ps::bf16)
+PS_EXPAND(10, f64_bf16, double, ps::bf16)
+PS_EXPAND(4, f32_bf16, float, ps::bf16)
+PS_EXPAND(4, f64_bf16, double, ps::bf16)
 #undef PS_EXPAND
 
 }  // extern "C"

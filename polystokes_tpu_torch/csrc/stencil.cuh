@@ -13,13 +13,23 @@
 // is natural edge j + e_p + e_q: the index-0 planes are dropped, which is
 // exact while no face or edge on them is active.
 //
+// Coefficient storage: every function that reads the stack c (or the
+// reduced-face masks red) takes C, the type the stack is stored in: T
+// itself, or __nv_bfloat16 under coeff_bf16 (polystokes_tpu/pallas_apply.py
+// pack_coeffs storage_dtype), and converts each value to T as it loads it
+// (ldc), exactly, as JAX's bf16 x f32 promotion does.  All arithmetic stays
+// in T; no product of two coefficient values is formed in C.
+//
 // Out-of-range neighbours read as 0.  That is the zero halo the TPU
 // kernels pad on x and y and the zero fill of their z shifts
 // (polystokes_tpu/pallas_apply.py _pad_halo, _shift_z), so no padded
 // copy of any array is made here.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace ps {
 
@@ -44,6 +54,24 @@ enum : int {
 constexpr int K_QUADRATIC = 10;
 constexpr int K_AFFINE = 4;
 
+using bf16 = __nv_bfloat16;
+
+// A stored coefficient value in T: exact for both storage types (a bf16 is
+// the top half of a float).
+template <typename T, typename C>
+__device__ __forceinline__ T to_t(C v) {
+  if constexpr (std::is_same<C, bf16>::value) return T(__uint_as_float((unsigned)__bfloat16_as_ushort(v) << 16));
+  else return v;
+}
+
+// Load one stored coefficient through the read-only path and convert it.
+template <typename T, typename C>
+__device__ __forceinline__ T ldc(const C* __restrict__ p) {
+  if constexpr (std::is_same<C, bf16>::value)
+    return T(__uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16));
+  else return __ldg(p);
+}
+
 struct Dims {
   int nx, ny, nz;
   long long plane;  // nx * ny * nz, the channel stride
@@ -57,25 +85,25 @@ struct Dims {
 };
 
 // g_a = clw * (p - tau_aa) at (i, j, k)
-template <typename T>
-__device__ __forceinline__ T cell_g(const T* __restrict__ x, const T* __restrict__ c, int a, int i, int j, int k, const Dims& d) {
+template <typename T, typename C>
+__device__ __forceinline__ T cell_g(const T* __restrict__ x, const C* __restrict__ c, int a, int i, int j, int k, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
   const long long q = d.at(i, j, k);
-  return __ldg(c + C_CLW * d.plane + q) * (__ldg(x + q) - __ldg(x + (1 + a) * d.plane + q));
+  return ldc<T>(c + C_CLW * d.plane + q) * (__ldg(x + q) - __ldg(x + (1 + a) * d.plane + q));
 }
 
 // h_e = elw_e * tau_e at (i, j, k)
-template <typename T>
-__device__ __forceinline__ T edge_h(const T* __restrict__ x, const T* __restrict__ c, int e, int i, int j, int k, const Dims& d) {
+template <typename T, typename C>
+__device__ __forceinline__ T edge_h(const T* __restrict__ x, const C* __restrict__ c, int e, int i, int j, int k, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
   const long long q = d.at(i, j, k);
-  return __ldg(c + (C_ELW + e) * d.plane + q) * __ldg(x + (4 + e) * d.plane + q);
+  return ldc<T>(c + (C_ELW + e) * d.plane + q) * __ldg(x + (4 + e) * d.plane + q);
 }
 
 // s_a = ffw_a * (g_a[q + e_a] - g_a[q] + sum_{e != a} (h_e[q - e_t] - h_e[q])),
 // t = 3 - a - e: _forward_s of polystokes_tpu/pallas_apply.py in slot space.
-template <typename T>
-__device__ __forceinline__ T forward_s(const T* __restrict__ x, const T* __restrict__ c, int a, int i, int j, int k, const Dims& d) {
+template <typename T, typename C>
+__device__ __forceinline__ T forward_s(const T* __restrict__ x, const C* __restrict__ c, int a, int i, int j, int k, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
   const int ia = i + (a == 0), ja = j + (a == 1), ka = k + (a == 2);
   const T g0 = cell_g(x, c, a, i, j, k, d);
@@ -86,22 +114,22 @@ __device__ __forceinline__ T forward_s(const T* __restrict__ x, const T* __restr
     const T hm = edge_h(x, c, e, i - (t == 0), j - (t == 1), k - (t == 2), d);
     v = v + hm - edge_h(x, c, e, i, j, k, d);
   }
-  return __ldg(c + (C_FFW + a) * d.plane + d.at(i, j, k)) * v;
+  return ldc<T>(c + (C_FFW + a) * d.plane + d.at(i, j, k)) * v;
 }
 
 // The face value the transpose spreads: w_a = ffw_a * (-dtMcInv_a * s_a - u_a)
 // from s_a and u_a at slot q.  The transpose carries its own ffw factor (G^T
 // has G's face weight, polystokes_tpu/operators.py transpose_from_faces).
-template <typename T>
-__device__ __forceinline__ T w_from_s_u(const T* __restrict__ c, int a, long long q, const Dims& d, T s, T u) {
-  const T f = -__ldg(c + (C_DTMCINV + a) * d.plane + q) * s - u;
-  return __ldg(c + (C_FFW + a) * d.plane + q) * f;
+template <typename T, typename C>
+__device__ __forceinline__ T w_from_s_u(const C* __restrict__ c, int a, long long q, const Dims& d, T s, T u) {
+  const T f = -ldc<T>(c + (C_DTMCINV + a) * d.plane + q) * s - u;
+  return ldc<T>(c + (C_FFW + a) * d.plane + q) * f;
 }
 
 // w_a with s_a read from a stored forward pass (combine_kernel); 0 outside
 // the grid.
-template <typename T>
-__device__ __forceinline__ T face_w_stored(const T* __restrict__ c, const T* __restrict__ s, const T* __restrict__ u, int a, int i, int j, int k, const Dims& d) {
+template <typename T, typename C>
+__device__ __forceinline__ T face_w_stored(const C* __restrict__ c, const T* __restrict__ s, const T* __restrict__ u, int a, int i, int j, int k, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
   const long long q = d.at(i, j, k);
   return w_from_s_u(c, a, q, d, __ldg(s + a * d.plane + q), __ldg(u + a * d.plane + q));
@@ -109,20 +137,20 @@ __device__ __forceinline__ T face_w_stored(const T* __restrict__ c, const T* __r
 
 // The grid branch's face value w_a = ffw_a * (-dtMcInv_a * s_a): w_from_s_u
 // without u.
-template <typename T>
-__device__ __forceinline__ T grid_w_from_s(const T* __restrict__ c, int a, long long q, const Dims& d, T s) {
-  return __ldg(c + (C_FFW + a) * d.plane + q) * (-__ldg(c + (C_DTMCINV + a) * d.plane + q) * s);
+template <typename T, typename C>
+__device__ __forceinline__ T grid_w_from_s(const C* __restrict__ c, int a, long long q, const Dims& d, T s) {
+  return ldc<T>(c + (C_FFW + a) * d.plane + q) * (-ldc<T>(c + (C_DTMCINV + a) * d.plane + q) * s);
 }
 
 // The face value w_a = ffw_a * (sign * u_a) of u alone (_transpose_contrib
 // of polystokes_tpu/pallas_apply.py, its own ffw factor kept: dropping it is
 // wrong at solid-cut faces).  sign -1: the apply's reduced branch -u
 // (finish); +1: the REGION_ARROW solve's transpose of u (transpose_u).
-template <typename T>
-__device__ __forceinline__ T face_w_u(const T* __restrict__ c, const T* __restrict__ u, T sign, int a, int i, int j, int k, const Dims& d) {
+template <typename T, typename C>
+__device__ __forceinline__ T face_w_u(const C* __restrict__ c, const T* __restrict__ u, T sign, int a, int i, int j, int k, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
   const long long q = d.at(i, j, k);
-  return __ldg(c + (C_FFW + a) * d.plane + q) * (sign * __ldg(u + a * d.plane + q));
+  return ldc<T>(c + (C_FFW + a) * d.plane + q) * (sign * __ldg(u + a * d.plane + q));
 }
 
 // The 7 outputs of the transpose [G Dt]^T at slot (i, j, k), without mass
@@ -131,10 +159,10 @@ __device__ __forceinline__ T face_w_u(const T* __restrict__ c, const T* __restri
 //   o[0]   = clw sum_a (w_a[q - e_a] - w_a[q])
 //   o[1+a] = -clw (w_a[q - e_a] - w_a[q])
 //   o[4+e] = elw_e sum_{a != e} (w_a[q + e_t] - w_a[q])
-template <typename T, typename WF>
-__device__ __forceinline__ void transpose_contrib(const T* __restrict__ c, int i, int j, int k, const Dims& d, const T w0[3], const WF& wf, T o[7]) {
+template <typename T, typename C, typename WF>
+__device__ __forceinline__ void transpose_contrib(const C* __restrict__ c, int i, int j, int k, const Dims& d, const T w0[3], const WF& wf, T o[7]) {
   const long long q = d.at(i, j, k);
-  const T clw = __ldg(c + C_CLW * d.plane + q);
+  const T clw = ldc<T>(c + C_CLW * d.plane + q);
   T p_acc = T(0);
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -155,18 +183,18 @@ __device__ __forceinline__ void transpose_contrib(const T* __restrict__ c, int i
       const T dv = wf(a, i + (t == 0), j + (t == 1), k + (t == 2)) - w0[a];
       acc = (s == 0) ? dv : acc + dv;
     }
-    o[4 + e] = __ldg(c + (C_ELW + e) * d.plane + q) * acc;
+    o[4 + e] = ldc<T>(c + (C_ELW + e) * d.plane + q) * acc;
   }
 }
 
 // The uInv mass terms: o[1+a] -= 0.5 uInv_c x[1+a], o[4+e] -= 0.5 uInv_e x[4+e].
-template <typename T>
-__device__ __forceinline__ void sub_mass_terms(const T* __restrict__ x, const T* __restrict__ c, long long q, const Dims& d, T o[7]) {
-  const T uinv2c = __ldg(c + C_UINV2C * d.plane + q);
+template <typename T, typename C>
+__device__ __forceinline__ void sub_mass_terms(const T* __restrict__ x, const C* __restrict__ c, long long q, const Dims& d, T o[7]) {
+  const T uinv2c = ldc<T>(c + C_UINV2C * d.plane + q);
 #pragma unroll
   for (int a = 0; a < 3; ++a) o[1 + a] = o[1 + a] - uinv2c * __ldg(x + (1 + a) * d.plane + q);
 #pragma unroll
-  for (int e = 0; e < 3; ++e) o[4 + e] = o[4 + e] - __ldg(c + (C_UINV2E + e) * d.plane + q) * __ldg(x + (4 + e) * d.plane + q);
+  for (int e = 0; e < 3; ++e) o[4 + e] = o[4 + e] - ldc<T>(c + (C_UINV2E + e) * d.plane + q) * __ldg(x + (4 + e) * d.plane + q);
 }
 
 // The region polynomial sum_m v_m m_m(px, py, pz) of one cube and axis
@@ -199,12 +227,13 @@ __device__ __forceinline__ RowPoly<T, K> row_poly(const T* __restrict__ vc, int 
 // The region polynomial on face a at slot (i, j, k): u_a = chi_a sum_m
 // v[cube, aK + m] m_m(p - origin), in the slot's own cube (expand_packed of
 // polystokes_tpu/pallas_apply.py), p cube-local with +0.5 on the face axis.
-// v is [cs0, cs1, 3K, cs2]; red the [3, nx, ny, nz] reduced-face masks.  0
-// off the reduced faces and outside the grid, where v is not read.
-template <typename T, int K>
-__device__ __forceinline__ T expand_at(const T* __restrict__ v, const T* __restrict__ red, int a, int i, int j, int k, int tile, const Dims& d) {
+// v is [cs0, cs1, 3K, cs2]; red the [3, nx, ny, nz] reduced-face masks,
+// stored in C.  0 off the reduced faces and outside the grid, where v is
+// not read.
+template <typename T, int K, typename C>
+__device__ __forceinline__ T expand_at(const T* __restrict__ v, const C* __restrict__ red, int a, int i, int j, int k, int tile, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
-  const T chi = __ldg(red + a * d.plane + d.at(i, j, k));
+  const T chi = ldc<T>(red + a * d.plane + d.at(i, j, k));
   if (chi == T(0)) return T(0);
   const int cs1 = d.ny / tile, cs2 = d.nz / tile;
   const int c0 = i / tile, c1 = j / tile, c2 = k / tile;
@@ -218,11 +247,11 @@ __device__ __forceinline__ T expand_at(const T* __restrict__ v, const T* __restr
 // from v in place: face_w_u(c, u, -1, ...) without the stored u.  Each
 // neighbour evaluates the polynomial of its own cube, so a stencil that
 // crosses a cube face needs no window decomposition.
-template <typename T, int K>
-__device__ __forceinline__ T face_w_v(const T* __restrict__ c, const T* __restrict__ v, int a, int i, int j, int k, int tile, const Dims& d) {
+template <typename T, int K, typename C>
+__device__ __forceinline__ T face_w_v(const C* __restrict__ c, const T* __restrict__ v, int a, int i, int j, int k, int tile, const Dims& d) {
   if (!d.inside(i, j, k)) return T(0);
   const T u = expand_at<T, K>(v, c + C_RED * d.plane, a, i, j, k, tile, d);
-  return __ldg(c + (C_FFW + a) * d.plane + d.at(i, j, k)) * (-u);
+  return ldc<T>(c + (C_FFW + a) * d.plane + d.at(i, j, k)) * (-u);
 }
 
 // The pointwise packed preconditioners z = M^-1 r at slot q: KIND_NONE the

@@ -5,7 +5,8 @@
 // ctypes by polystokes_tpu_torch/packed_apply.py).  Bounds are HBM bytes at
 // 128^3 in f32 (8.39 MB per channel) over 3.35 TB/s; the arithmetic, 40-90
 // flops per slot, is far below the memory time.  Each reads only channels
-// 0-13 of the coefficient stack, so the 14- and 17-channel stacks both work.
+// 0-13 of the coefficient stack, so the 14- and 17-channel stacks both work,
+// stored in T or (coeff_bf16) in bf16, the storage type C of stencil.cuh.
 //
 // transpose_u_kernel replaces transpose_u_packed (_transpose_u_kernel,
 //   _transpose_contrib in polystokes_tpu/pallas_apply.py).  out = [G Dt]^T u:
@@ -33,9 +34,9 @@
 
 namespace ps {
 
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
-transpose_u_kernel(const T* __restrict__ c, const T* __restrict__ u, T* __restrict__ out, Dims d) {
+transpose_u_kernel(const C* __restrict__ c, const T* __restrict__ u, T* __restrict__ out, Dims d) {
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= d.plane) return;
   const int k = (int)(q % d.nz), j = (int)((q / d.nz) % d.ny), i = (int)(q / ((long long)d.nz * d.ny));
@@ -49,9 +50,9 @@ transpose_u_kernel(const T* __restrict__ c, const T* __restrict__ u, T* __restri
   for (int ch = 0; ch < 7; ++ch) out[ch * d.plane + q] = o[ch];
 }
 
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
-forward_s_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restrict__ s, Dims d) {
+forward_s_kernel(const T* __restrict__ x, const C* __restrict__ c, T* __restrict__ s, Dims d) {
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= d.plane) return;
   const int k = (int)(q % d.nz), j = (int)((q / d.nz) % d.ny), i = (int)(q / ((long long)d.nz * d.ny));
@@ -59,9 +60,9 @@ forward_s_kernel(const T* __restrict__ x, const T* __restrict__ c, T* __restrict
   for (int a = 0; a < 3; ++a) s[a * d.plane + q] = forward_s(x, c, a, i, j, k, d);
 }
 
-template <typename T>
+template <typename T, typename C>
 __global__ void __launch_bounds__(kThreads)
-combine_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* __restrict__ s, const T* __restrict__ u,
+combine_kernel(const T* __restrict__ x, const C* __restrict__ c, const T* __restrict__ s, const T* __restrict__ u,
                T* __restrict__ out, Dims d) {
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= d.plane) return;
@@ -77,24 +78,24 @@ combine_kernel(const T* __restrict__ x, const T* __restrict__ c, const T* __rest
   for (int ch = 0; ch < 7; ++ch) out[ch * d.plane + q] = o[ch];
 }
 
-template <typename T>
-int transpose_u(const T* c, const T* u, T* out, int nx, int ny, int nz, cudaStream_t stream) {
+template <typename T, typename C>
+int transpose_u(const C* c, const T* u, T* out, int nx, int ny, int nz, cudaStream_t stream) {
   const Dims d = dims(nx, ny, nz);
-  transpose_u_kernel<T><<<blocks_for(d.plane), kThreads, 0, stream>>>(c, u, out, d);
+  transpose_u_kernel<T, C><<<blocks_for(d.plane), kThreads, 0, stream>>>(c, u, out, d);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int forward_s_pass(const T* x, const T* c, T* s, int nx, int ny, int nz, cudaStream_t stream) {
+template <typename T, typename C>
+int forward_s_pass(const T* x, const C* c, T* s, int nx, int ny, int nz, cudaStream_t stream) {
   const Dims d = dims(nx, ny, nz);
-  forward_s_kernel<T><<<blocks_for(d.plane), kThreads, 0, stream>>>(x, c, s, d);
+  forward_s_kernel<T, C><<<blocks_for(d.plane), kThreads, 0, stream>>>(x, c, s, d);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int combine(const T* x, const T* c, const T* s, const T* u, T* out, int nx, int ny, int nz, cudaStream_t stream) {
+template <typename T, typename C>
+int combine(const T* x, const C* c, const T* s, const T* u, T* out, int nx, int ny, int nz, cudaStream_t stream) {
   const Dims d = dims(nx, ny, nz);
-  combine_kernel<T><<<blocks_for(d.plane), kThreads, 0, stream>>>(x, c, s, u, out, d);
+  combine_kernel<T, C><<<blocks_for(d.plane), kThreads, 0, stream>>>(x, c, s, u, out, d);
   return (int)cudaGetLastError();
 }
 
@@ -102,25 +103,21 @@ int combine(const T* x, const T* c, const T* s, const T* u, T* out, int nx, int 
 
 extern "C" {
 
-int ps_transpose_u_f32(const float* c, const float* u, float* out, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::transpose_u(c, u, out, nx, ny, nz, s);
-}
-int ps_transpose_u_f64(const double* c, const double* u, double* out, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::transpose_u(c, u, out, nx, ny, nz, s);
-}
-int ps_forward_s_f32(const float* x, const float* c, float* out, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::forward_s_pass(x, c, out, nx, ny, nz, s);
-}
-int ps_forward_s_f64(const double* x, const double* c, double* out, int nx, int ny, int nz, cudaStream_t s) {
-  return ps::forward_s_pass(x, c, out, nx, ny, nz, s);
-}
-int ps_combine_f32(const float* x, const float* c, const float* sv, const float* u, float* out, int nx, int ny, int nz,
-                   cudaStream_t s) {
-  return ps::combine(x, c, sv, u, out, nx, ny, nz, s);
-}
-int ps_combine_f64(const double* x, const double* c, const double* sv, const double* u, double* out, int nx, int ny,
-                   int nz, cudaStream_t s) {
-  return ps::combine(x, c, sv, u, out, nx, ny, nz, s);
-}
+// ps_<name>_<f32|f64>, and ps_<name>_<f32|f64>_bf16 with the stack in bf16
+#define PS_TRANSPOSE_FORMS(TAG, T, C) \
+  int ps_transpose_u_##TAG(const C* c, const T* u, T* out, int nx, int ny, int nz, cudaStream_t s) { \
+    return ps::transpose_u(c, u, out, nx, ny, nz, s); \
+  } \
+  int ps_forward_s_##TAG(const T* x, const C* c, T* out, int nx, int ny, int nz, cudaStream_t s) { \
+    return ps::forward_s_pass(x, c, out, nx, ny, nz, s); \
+  } \
+  int ps_combine_##TAG(const T* x, const C* c, const T* sv, const T* u, T* out, int nx, int ny, int nz, cudaStream_t s) { \
+    return ps::combine(x, c, sv, u, out, nx, ny, nz, s); \
+  }
+PS_TRANSPOSE_FORMS(f32, float, float)
+PS_TRANSPOSE_FORMS(f64, double, double)
+PS_TRANSPOSE_FORMS(f32_bf16, float, ps::bf16)
+PS_TRANSPOSE_FORMS(f64_bf16, double, ps::bf16)
+#undef PS_TRANSPOSE_FORMS
 
 }  // extern "C"

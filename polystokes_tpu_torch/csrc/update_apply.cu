@@ -41,6 +41,12 @@
 //   channels written: 72 (arrow) channels and v, 0.180 ms.  Design: one
 //   thread per slot; v stays in L1/L2.  Templated on K, the basis's
 //   monomials (stencil.cuh): 10 quadratic, 4 affine (row_poly's A + B z).
+//
+// finish_update_kernel and exp_finish_update_kernel read the coefficient
+// stack in its storage type C (T, or bf16 under coeff_bf16: stencil.cuh
+// ldc); x, r, p, out_grid, v, the factors and every output stay in T, so
+// the bf16 forms save 7 (finish_update) or 10 (exp_finish_update) of
+// their 72 channels' worth of bytes by half.
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -74,8 +80,8 @@ __device__ __forceinline__ void update_slot(T alpha, const T* __restrict__ x, co
 }
 
 // Ap = out_grid + [G Dt]^T(w) at (i, j, k), w_a anywhere from wf.
-template <typename T, typename WF>
-__device__ __forceinline__ void finished_ap(const T* __restrict__ c, const T* __restrict__ og, int i, int j, int k, const Dims& d,
+template <typename T, typename C, typename WF>
+__device__ __forceinline__ void finished_ap(const C* __restrict__ c, const T* __restrict__ og, int i, int j, int k, const Dims& d,
                                             const WF& wf, T ap[7]) {
   const long long q = d.at(i, j, k);
   T w0[3];
@@ -110,9 +116,9 @@ cg_update_kernel(const T* __restrict__ alpha, const T* __restrict__ x, const T* 
   store_partials(acc, partials);
 }
 
-template <typename T, int KIND>
+template <typename T, int KIND, typename C>
 __global__ void __launch_bounds__(kThreads)
-finish_update_kernel(const T* __restrict__ alpha, const T* __restrict__ c, const T* __restrict__ og, const T* __restrict__ u,
+finish_update_kernel(const T* __restrict__ alpha, const C* __restrict__ c, const T* __restrict__ og, const T* __restrict__ u,
                      const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ p, const T* __restrict__ f,
                      T* __restrict__ xo, T* __restrict__ ro, T* __restrict__ zo, T* __restrict__ partials, Dims d) {
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -127,9 +133,9 @@ finish_update_kernel(const T* __restrict__ alpha, const T* __restrict__ c, const
   store_partials(acc, partials);
 }
 
-template <typename T, int KIND, int K>
+template <typename T, int KIND, int K, typename C>
 __global__ void __launch_bounds__(kThreads)
-exp_finish_update_kernel(const T* __restrict__ alpha, const T* __restrict__ c, const T* __restrict__ v, const T* __restrict__ og,
+exp_finish_update_kernel(const T* __restrict__ alpha, const C* __restrict__ c, const T* __restrict__ v, const T* __restrict__ og,
                          const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ p, const T* __restrict__ f,
                          T* __restrict__ xo, T* __restrict__ ro, T* __restrict__ zo, T* __restrict__ partials, Dims d, int tile) {
   const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -166,22 +172,22 @@ int cg_update(const T* alpha, const T* x, const T* r, const T* p, const T* ap, c
   });
 }
 
-template <typename T>
-int finish_update(const T* alpha, const T* c, const T* og, const T* u, const T* x, const T* r, const T* p, const T* f, T* xo, T* ro,
+template <typename T, typename C>
+int finish_update(const T* alpha, const C* c, const T* og, const T* u, const T* x, const T* r, const T* p, const T* f, T* xo, T* ro,
                   T* zo, T* partials, int nx, int ny, int nz, int kind, cudaStream_t stream) {
   const Dims d = dims(nx, ny, nz);
   return launch_for_kind(kind, [&](auto kd) {
-    finish_update_kernel<T, decltype(kd)::value><<<blocks_for(d.plane), kThreads, 0, stream>>>(alpha, c, og, u, x, r, p, f, xo, ro, zo,
+    finish_update_kernel<T, decltype(kd)::value, C><<<blocks_for(d.plane), kThreads, 0, stream>>>(alpha, c, og, u, x, r, p, f, xo, ro, zo,
                                                                                                partials, d);
   });
 }
 
-template <typename T, int K>
-int exp_finish_update(const T* alpha, const T* c, const T* v, const T* og, const T* x, const T* r, const T* p, const T* f, T* xo,
+template <typename T, int K, typename C>
+int exp_finish_update(const T* alpha, const C* c, const T* v, const T* og, const T* x, const T* r, const T* p, const T* f, T* xo,
                       T* ro, T* zo, T* partials, int nx, int ny, int nz, int tile, int kind, cudaStream_t stream) {
   const Dims d = dims(nx, ny, nz);
   return launch_for_kind(kind, [&](auto kd) {
-    exp_finish_update_kernel<T, decltype(kd)::value, K><<<blocks_for(d.plane), kThreads, 0, stream>>>(alpha, c, v, og, x, r, p, f,
+    exp_finish_update_kernel<T, decltype(kd)::value, K, C><<<blocks_for(d.plane), kThreads, 0, stream>>>(alpha, c, v, og, x, r, p, f,
                                                                                                       xo, ro, zo, partials, d, tile);
   });
 }
@@ -198,27 +204,30 @@ int ps_cg_update_f64(const double* alpha, const double* x, const double* r, cons
                      double* xo, double* ro, double* zo, double* partials, int nx, int ny, int nz, int kind, cudaStream_t s) {
   return ps::cg_update(alpha, x, r, p, ap, f, xo, ro, zo, partials, nx, ny, nz, kind, s);
 }
-int ps_finish_update_f32(const float* alpha, const float* c, const float* og, const float* u, const float* x, const float* r,
-                         const float* p, const float* f, float* xo, float* ro, float* zo, float* partials, int nx, int ny, int nz,
-                         int kind, cudaStream_t s) {
-  return ps::finish_update(alpha, c, og, u, x, r, p, f, xo, ro, zo, partials, nx, ny, nz, kind, s);
-}
-int ps_finish_update_f64(const double* alpha, const double* c, const double* og, const double* u, const double* x, const double* r,
-                         const double* p, const double* f, double* xo, double* ro, double* zo, double* partials, int nx, int ny,
-                         int nz, int kind, cudaStream_t s) {
-  return ps::finish_update(alpha, c, og, u, x, r, p, f, xo, ro, zo, partials, nx, ny, nz, kind, s);
-}
-// ps_exp_finish_update_k10_* (the quadratic basis) and _k4_* (the affine one)
-#define PS_EXP_FINISH_UPDATE(K, TAG, T) \
-  int ps_exp_finish_update_k##K##_##TAG(const T* alpha, const T* c, const T* v, const T* og, const T* x, const T* r, const T* p, \
+// ps_finish_update_* and ps_exp_finish_update_k<K>_* (K 10: the quadratic
+// basis, 4: the affine one), the stack stored in T or (suffix _bf16) bf16
+#define PS_FINISH_UPDATE(TAG, T, C) \
+  int ps_finish_update_##TAG(const T* alpha, const C* c, const T* og, const T* u, const T* x, const T* r, const T* p, \
+                             const T* f, T* xo, T* ro, T* zo, T* partials, int nx, int ny, int nz, int kind, \
+                             cudaStream_t s) { \
+    return ps::finish_update(alpha, c, og, u, x, r, p, f, xo, ro, zo, partials, nx, ny, nz, kind, s); \
+  }
+#define PS_EXP_FINISH_UPDATE(K, TAG, T, C) \
+  int ps_exp_finish_update_k##K##_##TAG(const T* alpha, const C* c, const T* v, const T* og, const T* x, const T* r, const T* p, \
                                         const T* f, T* xo, T* ro, T* zo, T* partials, int nx, int ny, int nz, int tile, int kind, \
                                         cudaStream_t s) { \
-    return ps::exp_finish_update<T, K>(alpha, c, v, og, x, r, p, f, xo, ro, zo, partials, nx, ny, nz, tile, kind, s); \
+    return ps::exp_finish_update<T, K, C>(alpha, c, v, og, x, r, p, f, xo, ro, zo, partials, nx, ny, nz, tile, kind, s); \
   }
-PS_EXP_FINISH_UPDATE(10, f32, float)
-PS_EXP_FINISH_UPDATE(10, f64, double)
-PS_EXP_FINISH_UPDATE(4, f32, float)
-PS_EXP_FINISH_UPDATE(4, f64, double)
+#define PS_UPDATE_FORMS(TAG, T, C) \
+  PS_FINISH_UPDATE(TAG, T, C) \
+  PS_EXP_FINISH_UPDATE(10, TAG, T, C) \
+  PS_EXP_FINISH_UPDATE(4, TAG, T, C)
+PS_UPDATE_FORMS(f32, float, float)
+PS_UPDATE_FORMS(f64, double, double)
+PS_UPDATE_FORMS(f32_bf16, float, ps::bf16)
+PS_UPDATE_FORMS(f64_bf16, double, ps::bf16)
+#undef PS_UPDATE_FORMS
 #undef PS_EXP_FINISH_UPDATE
+#undef PS_FINISH_UPDATE
 
 }  // extern "C"

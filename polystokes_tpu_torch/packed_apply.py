@@ -22,7 +22,12 @@ in w (the transpose's own face weight) matters at solid-cut faces.
 Coefficient channels: 0 clw_s | 1-3 elw_s | 4-6 ffw | 7-9 dt*mc_inv |
 10 0.5*uinv_c | 11-13 0.5*uinv_e | 14-16 reduced-face masks, which the
 uniform stack (14 channels) omits.  The stack is unpadded: the CUDA
-kernels read a zero for every out-of-range neighbour.
+kernels read a zero for every out-of-range neighbour.  Under
+``coeff_bf16`` the stack (and the masks ``expand`` reads) is stored in
+bfloat16 (``pack_coeffs(storage_dtype=torch.bfloat16)``) while x, u, v and
+every output stay in the compute dtype T: each kernel converts a stored
+value to T as it loads it and computes in T, and each twin promotes the
+stack to T first, as JAX's bf16 x f32 promotion does.
 
 Kernels
 -------
@@ -51,11 +56,13 @@ The four kernels that read the basis (``moments_packed``,
 ``expand_packed``, ``grid_mom_pap_packed``, ``exp_finish_update_packed``)
 take ``basis`` as the JAX wrappers do and work on [cs0, cs1, 3K, cs2]
 per-cube arrays, K = 10 monomials for the quadratic basis and 4 for the
-affine one; each has a CUDA form for each K.
+affine one; each has a CUDA form for each K.  Every kernel that reads the
+stack has a form for each storage type, picked by the stack's dtype.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, either basis
-under one name; under a CUDA graph, ``captured_launches`` and
-``add_launches`` count each replay's.
+under one name, the bfloat16-storage forms under the name with ``_bf16``
+appended; under a CUDA graph, ``captured_launches`` and ``add_launches``
+count each replay's.
 """
 from __future__ import annotations
 
@@ -88,9 +95,11 @@ N_COEFF_UNIFORM = 14  # without the reduced-face masks
 PAP_BLOCK = 256  # slots per dot partial of the update kernels (their thread block)
 KERNEL_THREADS = 256  # most threads in a block of any kernel (csrc/stencil.cuh kThreads)
 
-LAUNCHES = {name: 0 for name in ("moments", "expand", "apply_reduced", "grid_mom_pap", "finish", "apply_uniform",
-                                 "apply_uniform_pap", "transpose_u", "forward_s", "combine", "cg_update",
-                                 "finish_update", "exp_finish_update")}
+KERNEL_NAMES = ("moments", "expand", "apply_reduced", "grid_mom_pap", "finish", "apply_uniform", "apply_uniform_pap",
+                "transpose_u", "forward_s", "combine", "cg_update", "finish_update", "exp_finish_update")
+# the kernels that read no coefficient stack, so have no bfloat16-storage form
+_STACKLESS_KERNELS = ("cg_update",)
+LAUNCHES = {name: 0 for name in KERNEL_NAMES + tuple(f"{k}_bf16" for k in KERNEL_NAMES if k not in _STACKLESS_KERNELS)}
 
 # channels of the CELL_ARROW factor stack (pack_arrow_factors), as in the
 # JAX package's pallas_apply
@@ -177,11 +186,13 @@ def packed_masks(cls, dtype) -> torch.Tensor:
     return torch.stack([cell, cell, cell, cell] + edges, dim=0)
 
 
-def pack_coeffs(asm, cls=None) -> torch.Tensor:
+def pack_coeffs(asm, cls=None, storage_dtype=None) -> torch.Tensor:
     """Assembled -> the unpadded [17, nx, ny, nz] pre-scaled coefficient
     stack (the JAX package's ``pack_coeffs(..., pad=False)``); without
     ``cls`` (the uniform solve) the [14, ...] stack without the reduced-face
-    masks, which the uniform kernels never read."""
+    masks, which the uniform kernels never read.  ``storage_dtype``
+    (``torch.bfloat16`` under ``coeff_bf16``) rounds the stack, built in
+    the compute dtype, to nearest even, as JAX's ``astype`` does."""
     dtype = asm.clw_s.dtype
     chans = [asm.clw_s]
     chans += [_edge_to_slot(asm.elw_s[e], e) for e in range(3)]
@@ -191,7 +202,8 @@ def pack_coeffs(asm, cls=None) -> torch.Tensor:
     chans += [_edge_to_slot(0.5 * asm.uinv_e[e], e) for e in range(3)]
     if cls is not None:
         chans += [_face_to_slot(m.to(dtype), a) for a, m in enumerate(reduced_face_masks(cls))]
-    return torch.stack(chans, dim=0).contiguous()
+    stack = torch.stack(chans, dim=0)
+    return (stack if storage_dtype is None else stack.to(storage_dtype)).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +212,7 @@ def pack_coeffs(asm, cls=None) -> torch.Tensor:
 
 def _forward_s(x, c):
     """s_a (list of 3) in slot space."""
+    c = c.to(x.dtype)  # a bf16 stack in the compute dtype (exact)
     p = x[0]
     h = [c[C_ELW + e] * x[4 + e] for e in range(3)]
     s = []
@@ -216,6 +229,7 @@ def _forward_s(x, c):
 def _transpose_contrib(c, w):
     """The 7 output channels of [G Dt]^T on face values w, without the mass
     terms; the transpose's own ffw factor is applied here."""
+    c = c.to(w[0].dtype)
     w = [c[C_FFW + a] * w[a] for a in range(3)]
     dsum = [shift(w[a], unit(a, -1)) - w[a] for a in range(3)]
     clw = c[C_CLW]
@@ -230,6 +244,7 @@ def _transpose_contrib(c, w):
 def _transpose_out(x, c, w):
     """The 7 output channels from face values w, with the mass terms."""
     out = _transpose_contrib(c, w)
+    c = c.to(x.dtype)
     out[1:4] -= c[C_UINV2C] * x[1:4]
     out[4:7] -= c[C_UINV2E : C_UINV2E + 3] * x[4:7]
     return out
@@ -237,6 +252,7 @@ def _transpose_out(x, c, w):
 
 def _grid_w(c, s):
     """The grid branch's face values -dt McInv s (before the ffw factor)."""
+    c = c.to(s[0].dtype)
     return [-c[C_DTMCINV + a] * s[a] for a in range(3)]
 
 
@@ -252,6 +268,7 @@ def _local_monomials(T: int, a: int, like, basis: BasisOrder):
 def _moments_from_s(s, coeffs, T: int, basis: BasisOrder):
     """[cs0, cs1, 3K, cs2] cube-origin moments of the reduced-masked s."""
     nx, ny, nz = s[0].shape
+    coeffs = coeffs.to(s[0].dtype)
     rows = []
     for a in range(3):
         sm = (s[a] * coeffs[C_RED + a]).reshape(nx // T, T, ny // T, T, nz // T, T)
@@ -279,6 +296,7 @@ def expand_packed_plain(v_origin, red_packed, T: int, basis: BasisOrder = BasisO
     """u_a = chi_a sum_k v[cube, aK+k] m_k(p - origin): [3, nx, ny, nz]."""
     cs0, cs1, _, cs2 = v_origin.shape
     K = n_monomials(basis)
+    red_packed = red_packed.to(v_origin.dtype)
     out = []
     for a in range(3):
         va = v_origin[:, :, a * K : (a + 1) * K, :]
@@ -392,10 +410,13 @@ _LIB = None
 # csrc/fused_apply.cu plane_window_kernel
 _WINDOW_KERNELS = {"grid_mom_pap": 0, "apply_uniform": 1, "apply_uniform_pap": 2, "apply_reduced": 3, "moments": 4}
 # (entry point, pointer arguments, int arguments) of each kernel; every
-# entry point also takes the stream and exists for f32 and f64, and those of
+# entry point also takes the stream and exists for f32 and f64, those of
 # the kernels that read the basis for K = 10 and K = 4 monomials (the
-# quadratic and the affine basis): ps_<name>_k<K>_<f32|f64>
+# quadratic and the affine basis): ps_<name>_k<K>_<f32|f64>, and those of
+# the kernels that read the coefficient stack (all but cg_update) also with
+# the stack stored in bfloat16: ps_<name>[_k<K>]_<f32|f64>_bf16
 _BASIS_KERNELS = ("moments", "expand", "grid_mom_pap", "exp_finish_update")
+STORAGE_DTYPES = (torch.bfloat16,)  # stack storage besides the compute dtype
 _SIGNATURES = (("moments", 3, 6), ("expand", 3, 7), ("apply_reduced", 4, 6), ("grid_mom_pap", 5, 6),
                ("finish", 4, 3), ("apply_uniform", 3, 6), ("apply_uniform_pap", 4, 6), ("transpose_u", 3, 3),
                ("forward_s", 3, 3), ("combine", 5, 3), ("cg_update", 10, 4), ("finish_update", 12, 4),
@@ -460,48 +481,65 @@ def _library():
         for dt in ("f32", "f64"):
             for name, n_ptr, n_int in _SIGNATURES:
                 for basis in (BasisOrder.QUADRATIC, BasisOrder.AFFINE) if name in _BASIS_KERNELS else (None,):
-                    fn = getattr(lib, _entry(name, dt, basis))
-                    fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
-                    fn.restype = i32
-            # window bytes at (by, bz, MODE); blocks per SM at (by, bz)
-            for query, n_int in [("window_bytes", 3)] + [(f"{k}_blocks_per_sm", 2) for k in _WINDOW_KERNELS]:
-                fn = getattr(lib, f"ps_{query}_{dt}")
-                fn.argtypes, fn.restype = [i32] * n_int, i32
+                    for bf16 in (False,) if name in _STACKLESS_KERNELS else (False, True):
+                        fn = getattr(lib, _entry(name, dt, basis, bf16))
+                        fn.argtypes = [ptr] * n_ptr + [i32] * n_int + [ptr]
+                        fn.restype = i32
+            # window bytes at (by, bz, MODE); blocks per SM at (by, bz) of
+            # each storage type
+            fn = getattr(lib, f"ps_window_bytes_{dt}")
+            fn.argtypes, fn.restype = [i32] * 3, i32
+            for k in _WINDOW_KERNELS:
+                for tag in (dt, f"{dt}_bf16"):
+                    fn = getattr(lib, f"ps_{k}_blocks_per_sm_{tag}")
+                    fn.argtypes, fn.restype = [i32] * 2, i32
         _LIB = lib
     return _LIB
 
 
-def _entry(name: str, dt: str, basis=None) -> str:
+def _entry(name: str, dt: str, basis=None, bf16: bool = False) -> str:
     """The C entry point of a kernel in f32 or f64; a kernel that reads the
-    basis has one for each K, picked by ``basis``."""
+    basis has one for each K, picked by ``basis``, and one that reads the
+    coefficient stack one for the stack stored in bfloat16 (``bf16``)."""
     if (basis is None) != (name not in _BASIS_KERNELS):
         raise ValueError(f"{name}: a basis is {'required' if basis is None else 'not taken'}")
-    return f"ps_{name}_{dt}" if basis is None else f"ps_{name}_k{n_monomials(basis)}_{dt}"
+    if bf16 and name in _STACKLESS_KERNELS:
+        raise ValueError(f"{name} reads no coefficient stack, so it has no bfloat16-storage form")
+    entry = f"ps_{name}_{dt}" if basis is None else f"ps_{name}_k{n_monomials(basis)}_{dt}"
+    return entry + ("_bf16" if bf16 else "")
 
 
-def _launch(name: str, tensors, ints, dtype, basis=None):
+def _launch(name: str, tensors, ints, dtype, basis=None, stored=None):
     """Launch one kernel, the entry point of ``basis`` where the kernel
-    reads it; a tensor given as None is a null pointer (the factors of the
+    reads it and of the dtype of its ``stored`` stack (or masks) where it
+    reads one; a tensor given as None is a null pointer (the factors of the
     update kernels' kind "none")."""
-    fn = getattr(_library(), _entry(name, "f32" if dtype == torch.float32 else "f64", basis))
+    bf16 = stored is not None and stored.dtype == torch.bfloat16
+    fn = getattr(_library(), _entry(name, "f32" if dtype == torch.float32 else "f64", basis, bf16))
     device = tensors[0].device
     with torch.cuda.device(device):  # the runtime launches on the current device
         err = fn(*[None if t is None else t.data_ptr() for t in tensors], *ints,
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name + ("_bf16" if bf16 else "")] += 1
 
 
-def _check(name, tensors, shapes):
+def _check(name, tensors, shapes, stored=()):
     """Device, dtype, shape and contiguity checks shared by the wrappers;
-    returns the device type ('cpu' or 'cuda')."""
+    returns the device type ('cpu' or 'cuda').  The tensors at the
+    positions ``stored`` (a coefficient stack, or mask stack) may be
+    stored in bfloat16, all in the same dtype; every other tensor shares
+    the compute dtype, float32 or float64."""
     dev = tensors[0].device
-    dtype = tensors[0].dtype
+    dtype = next(t.dtype for i, t in enumerate(tensors) if i not in stored)
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: float32 or float64 tensors required, got {dtype}")
-    for t, shape in zip(tensors, shapes):
-        if t.device != dev or t.dtype != dtype:
+    storage = {tensors[i].dtype for i in stored}
+    if len(storage) > 1 or not storage <= {dtype, *STORAGE_DTYPES}:
+        raise TypeError(f"{name}: the coefficient stack must be stored in {dtype} or bfloat16, got {sorted(map(str, storage))}")
+    for i, (t, shape) in enumerate(zip(tensors, shapes)):
+        if t.device != dev or (i not in stored and t.dtype != dtype):
             raise ValueError(f"{name}: all tensors must share device and dtype ({dev}, {dtype})")
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
@@ -563,13 +601,16 @@ def uniform_plan(res):
     return tuple(min(g, n) for g, n in zip(_UNIFORM_GEOMETRY, (res[1], res[2], res[0])))
 
 
-def window_occupancy(kernel: str, dtype, by: int, bz: int):
+def window_occupancy(kernel: str, dtype, by: int, bz: int, storage=None):
     """(window bytes, blocks per SM) of a plane-window kernel (one of
     _WINDOW_KERNELS; the moment modes in their quadratic form) at the column
-    (by, bz): its dynamic shared memory and the blocks the CUDA occupancy
-    calculator lets reside on one SM (registers, shared memory, threads)."""
+    (by, bz), with the stack stored in ``storage`` (the compute dtype by
+    default, or torch.bfloat16): its dynamic shared memory and the blocks
+    the CUDA occupancy calculator lets reside on one SM (registers, shared
+    memory, threads)."""
     dt = "f32" if dtype == torch.float32 else "f64"
-    n = getattr(_library(), f"ps_{kernel}_blocks_per_sm_{dt}")(by, bz)
+    tag = dt + ("_bf16" if storage == torch.bfloat16 else "")
+    n = getattr(_library(), f"ps_{kernel}_blocks_per_sm_{tag}")(by, bz)
     if n < 0:
         raise RuntimeError(f"occupancy query failed: CUDA error {-n}")
     return getattr(_library(), f"ps_window_bytes_{dt}")(by, bz, _WINDOW_KERNELS[kernel]), n
@@ -593,7 +634,7 @@ def moments_packed(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC)
     the K monomials of ``basis``."""
     res = tuple(xp.shape[1:])
     _cube_dims(res, T)
-    dev = _check("moments_packed", (xp, coeffs), ((7,) + res, (N_COEFF,) + res))
+    dev = _check("moments_packed", (xp, coeffs), ((7,) + res, (N_COEFF,) + res), stored=(1,))
     if dev == "cpu":
         return moments_packed_plain(xp, coeffs, T, basis)
     return _moments_cuda(xp, coeffs, T, *grid_mom_plan(T), basis=basis)
@@ -608,7 +649,7 @@ def _moments_cuda(xp, coeffs, T: int, by: int, bz: int, basis: BasisOrder = Basi
     cs = _cube_dims(res, T)
     lead = _cube_parts(T, by, bz)
     mom = torch.empty(lead + (cs[0], cs[1], 3 * n_monomials(basis), cs[2]), dtype=xp.dtype, device=xp.device)
-    _launch("moments", (xp, coeffs, mom), (*res, T, by, bz), xp.dtype, basis)
+    _launch("moments", (xp, coeffs, mom), (*res, T, by, bz), xp.dtype, basis, coeffs)
     return mom.sum(dim=0) if lead else mom
 
 
@@ -618,19 +659,20 @@ def expand_packed(v_origin, red_packed, T: int, basis: BasisOrder = BasisOrder.Q
     ``basis``."""
     res = tuple(red_packed.shape[1:])
     cs = _cube_dims(res, T)
-    dev = _check("expand_packed", (v_origin, red_packed), ((cs[0], cs[1], 3 * n_monomials(basis), cs[2]), (3,) + res))
+    dev = _check("expand_packed", (v_origin, red_packed), ((cs[0], cs[1], 3 * n_monomials(basis), cs[2]), (3,) + res),
+                 stored=(1,))
     if dev == "cpu":
         return expand_packed_plain(v_origin, red_packed, T, basis)
     u = torch.empty((3,) + res, dtype=v_origin.dtype, device=v_origin.device)
     plan = expand_plan(res, T, u.element_size(), aligned=red_packed.data_ptr() % 16 == 0 and u.data_ptr() % 16 == 0)
-    _launch("expand", (v_origin, red_packed, u), (*res, T, *plan), v_origin.dtype, basis)
+    _launch("expand", (v_origin, red_packed, u), (*res, T, *plan), v_origin.dtype, basis, red_packed)
     return u
 
 
 def apply_reduced_packed(xp, coeffs, up):
     """[7, nx, ny, nz] = the reduced A x given the expanded u."""
     res = tuple(xp.shape[1:])
-    dev = _check("apply_reduced_packed", (xp, coeffs, up), ((7,) + res, (N_COEFF,) + res, (3,) + res))
+    dev = _check("apply_reduced_packed", (xp, coeffs, up), ((7,) + res, (N_COEFF,) + res, (3,) + res), stored=(1,))
     if dev == "cpu":
         return apply_reduced_packed_plain(xp, coeffs, up)
     return _apply_reduced_cuda(xp, coeffs, up, *uniform_plan(res))
@@ -640,7 +682,7 @@ def _apply_reduced_cuda(xp, coeffs, up, by: int, bz: int, run: int):
     """The reduced apply kernel at the geometry (by, bz, run): by x bz
     columns over runs of `run` planes, as the uniform apply's."""
     out = torch.empty_like(xp)
-    _launch("apply_reduced", (xp, coeffs, up, out), (*xp.shape[1:], by, bz, run), xp.dtype)
+    _launch("apply_reduced", (xp, coeffs, up, out), (*xp.shape[1:], by, bz, run), xp.dtype, stored=coeffs)
     return out
 
 
@@ -651,7 +693,7 @@ def grid_mom_pap_packed(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADR
     per-cube partials of <x, out_grid>."""
     res = tuple(xp.shape[1:])
     _cube_dims(res, T)
-    dev = _check("grid_mom_pap_packed", (xp, coeffs), ((7,) + res, (N_COEFF,) + res))
+    dev = _check("grid_mom_pap_packed", (xp, coeffs), ((7,) + res, (N_COEFF,) + res), stored=(1,))
     if dev == "cpu":
         return grid_mom_pap_packed_plain(xp, coeffs, T, basis)
     return _grid_mom_pap_cuda(xp, coeffs, T, *grid_mom_plan(T), basis=basis)
@@ -667,7 +709,7 @@ def _grid_mom_pap_cuda(xp, coeffs, T: int, by: int, bz: int, basis: BasisOrder =
     out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
     mom = torch.empty(lead + (cs[0], cs[1], 3 * n_monomials(basis), cs[2]), dtype=xp.dtype, device=xp.device)
     partials = torch.empty(lead + (cs[0] * cs[1] * cs[2],), dtype=xp.dtype, device=xp.device)
-    _launch("grid_mom_pap", (xp, coeffs, out, mom, partials), (*res, T, by, bz), xp.dtype, basis)
+    _launch("grid_mom_pap", (xp, coeffs, out, mom, partials), (*res, T, by, bz), xp.dtype, basis, coeffs)
     if not lead:
         return out, mom, partials
     return out, mom.sum(dim=0), partials.sum(dim=0)
@@ -676,11 +718,11 @@ def _grid_mom_pap_cuda(xp, coeffs, T: int, by: int, bz: int, basis: BasisOrder =
 def finish_packed(coeffs, out_grid, up):
     """[7, nx, ny, nz] = out_grid + [G Dt]^T (-u), a new array."""
     res = tuple(out_grid.shape[1:])
-    dev = _check("finish_packed", (coeffs, out_grid, up), ((N_COEFF,) + res, (7,) + res, (3,) + res))
+    dev = _check("finish_packed", (coeffs, out_grid, up), ((N_COEFF,) + res, (7,) + res, (3,) + res), stored=(0,))
     if dev == "cpu":
         return finish_packed_plain(coeffs, out_grid, up)
     out = torch.empty((7,) + res, dtype=out_grid.dtype, device=out_grid.device)
-    _launch("finish", (coeffs, out_grid, up, out), res, out_grid.dtype)
+    _launch("finish", (coeffs, out_grid, up, out), res, out_grid.dtype, stored=coeffs)
     return out
 
 
@@ -698,7 +740,7 @@ def apply_uniform_packed(xp, coeffs):
     """[7, nx, ny, nz] = the uniform A x."""
     res = tuple(xp.shape[1:])
     n = _coeff_channels("apply_uniform_packed", coeffs)
-    dev = _check("apply_uniform_packed", (xp, coeffs), ((7,) + res, (n,) + res))
+    dev = _check("apply_uniform_packed", (xp, coeffs), ((7,) + res, (n,) + res), stored=(1,))
     if dev == "cpu":
         return apply_uniform_packed_plain(xp, coeffs)
     return _apply_uniform_cuda(xp, coeffs, *uniform_plan(res), pap=False)
@@ -709,7 +751,7 @@ def apply_uniform_pap_packed(xp, coeffs):
     <x, A x>, one per block of ``uniform_plan(res)``."""
     res = tuple(xp.shape[1:])
     n = _coeff_channels("apply_uniform_pap_packed", coeffs)
-    dev = _check("apply_uniform_pap_packed", (xp, coeffs), ((7,) + res, (n,) + res))
+    dev = _check("apply_uniform_pap_packed", (xp, coeffs), ((7,) + res, (n,) + res), stored=(1,))
     if dev == "cpu":
         return apply_uniform_pap_packed_plain(xp, coeffs)
     return _apply_uniform_cuda(xp, coeffs, *uniform_plan(res), pap=True)
@@ -722,11 +764,11 @@ def _apply_uniform_cuda(xp, coeffs, by: int, bz: int, run: int, pap: bool):
     res = tuple(xp.shape[1:])
     out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
     if not pap:
-        _launch("apply_uniform", (xp, coeffs, out), (*res, by, bz, run), xp.dtype)
+        _launch("apply_uniform", (xp, coeffs, out), (*res, by, bz, run), xp.dtype, stored=coeffs)
         return out
     blocks = -(-res[0] // run) * -(-res[1] // by) * -(-res[2] // bz)
     partials = torch.empty((blocks,), dtype=xp.dtype, device=xp.device)
-    _launch("apply_uniform_pap", (xp, coeffs, out, partials), (*res, by, bz, run), xp.dtype)
+    _launch("apply_uniform_pap", (xp, coeffs, out, partials), (*res, by, bz, run), xp.dtype, stored=coeffs)
     return out, partials
 
 
@@ -735,11 +777,11 @@ def transpose_u_packed(coeffs, up):
     mass terms, no grid branch (the REGION_ARROW solve's transpose leg)."""
     res = tuple(up.shape[1:])
     n = _coeff_channels("transpose_u_packed", coeffs)
-    dev = _check("transpose_u_packed", (coeffs, up), ((n,) + res, (3,) + res))
+    dev = _check("transpose_u_packed", (coeffs, up), ((n,) + res, (3,) + res), stored=(0,))
     if dev == "cpu":
         return transpose_u_packed_plain(coeffs, up)
     out = torch.empty((7,) + res, dtype=up.dtype, device=up.device)
-    _launch("transpose_u", (coeffs, up, out), res, up.dtype)
+    _launch("transpose_u", (coeffs, up, out), res, up.dtype, stored=coeffs)
     return out
 
 
@@ -747,11 +789,11 @@ def forward_s_packed(xp, coeffs):
     """[3, nx, ny, nz] = [G Dt] x on all faces (slot space)."""
     res = tuple(xp.shape[1:])
     n = _coeff_channels("forward_s_packed", coeffs)
-    dev = _check("forward_s_packed", (xp, coeffs), ((7,) + res, (n,) + res))
+    dev = _check("forward_s_packed", (xp, coeffs), ((7,) + res, (n,) + res), stored=(1,))
     if dev == "cpu":
         return forward_s_packed_plain(xp, coeffs)
     s = torch.empty((3,) + res, dtype=xp.dtype, device=xp.device)
-    _launch("forward_s", (xp, coeffs, s), res, xp.dtype)
+    _launch("forward_s", (xp, coeffs, s), res, xp.dtype, stored=coeffs)
     return s
 
 
@@ -760,18 +802,20 @@ def combine_packed(xp, coeffs, sp, up):
     from the forward values s and the expanded u."""
     res = tuple(xp.shape[1:])
     n = _coeff_channels("combine_packed", coeffs)
-    dev = _check("combine_packed", (xp, coeffs, sp, up), ((7,) + res, (n,) + res, (3,) + res, (3,) + res))
+    dev = _check("combine_packed", (xp, coeffs, sp, up), ((7,) + res, (n,) + res, (3,) + res, (3,) + res), stored=(1,))
     if dev == "cpu":
         return combine_packed_plain(xp, coeffs, sp, up)
     out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
-    _launch("combine", (xp, coeffs, sp, up, out), res, xp.dtype)
+    _launch("combine", (xp, coeffs, sp, up, out), res, xp.dtype, stored=coeffs)
     return out
 
 
 def _update_inputs(name, xp, rp, pp, alpha, factors, kind, extra, extra_shapes, out=None):
     """Checks shared by the update wrappers; returns (device type, alpha as
     a one-element tensor on xp's device).  ``out``, when given, is the pair
-    (x', r') of packed tensors the update writes, apart from every input."""
+    (x', r') of packed tensors the update writes, apart from every input.
+    A coefficient stack, where the kernel reads one, is ``extra[0]``, stored
+    in the compute dtype or in bfloat16."""
     if kind not in UPDATE_KINDS:
         raise ValueError(f"{name}: kind must be one of {tuple(UPDATE_KINDS)}, got {kind!r}")
     res = tuple(xp.shape[1:])
@@ -785,7 +829,7 @@ def _update_inputs(name, xp, rp, pp, alpha, factors, kind, extra, extra_shapes, 
         if len(out) != 2 or out[0].data_ptr() == out[1].data_ptr() or any(t.data_ptr() in inputs for t in out):
             raise ValueError(f"{name}: out must be two tensors apart from each other and from the inputs")
         tensors, shapes = tensors + list(out), shapes + [(7,) + res] * 2
-    dev = _check(name, tensors, shapes)
+    dev = _check(name, tensors, shapes, stored=(3,) if name != "cg_update_packed" else ())
     return dev, torch.as_tensor(alpha, dtype=xp.dtype, device=xp.device).reshape(1)
 
 
@@ -798,15 +842,16 @@ def _into(out, result):
     return (out[0], out[1]) + tuple(result[2:])
 
 
-def _run_update(name, tensors, ints, xp, kind, out=None, basis=None):
+def _run_update(name, tensors, ints, xp, kind, out=None, basis=None, stored=None):
     """Launch an update kernel on (alpha, inputs..., factors) and return the
     JAX 6-tuple, x' and r' in ``out`` when given; the [3, blocks] dot
-    partials are summed in a fixed order."""
+    partials are summed in a fixed order.  ``stored``: the coefficient
+    stack the kernel reads, if any, whose dtype picks the entry point."""
     xo, ro = (torch.empty_like(xp), torch.empty_like(xp)) if out is None else out
     zo = torch.empty_like(xp)
     partials = torch.empty((3, -(-xp[0].numel() // PAP_BLOCK)), dtype=xp.dtype, device=xp.device)
     _launch(name, (*tensors, xo, ro, zo, partials), (*tuple(xp.shape[1:]), *ints, UPDATE_KINDS[kind]), xp.dtype,
-            basis)
+            basis, stored)
     sums = torch.sum(partials, dim=1)
     return xo, ro, zo, sums[0], sums[1], sums[2]
 
@@ -833,7 +878,8 @@ def finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, up, factors=None, 
                             ((n,) + res, (7,) + res, (3,) + res), out)
     if dev == "cpu":
         return _into(out, finish_update_packed_plain(xp, rp, pp, a[0], coeffs, out_grid, up, factors, kind))
-    return _run_update("finish_update", (a, coeffs, out_grid, up, xp, rp, pp, factors), (), xp, kind, out)
+    return _run_update("finish_update", (a, coeffs, out_grid, up, xp, rp, pp, factors), (), xp, kind, out,
+                       stored=coeffs)
 
 
 def exp_finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, v_origin, T: int, factors=None, kind="none",
@@ -850,4 +896,4 @@ def exp_finish_update_packed(xp, rp, pp, alpha, coeffs, out_grid, v_origin, T: i
         return _into(out, exp_finish_update_packed_plain(xp, rp, pp, a[0], coeffs, out_grid, v_origin, T, factors,
                                                          kind, basis))
     return _run_update("exp_finish_update", (a, coeffs, v_origin, out_grid, xp, rp, pp, factors), (T,), xp, kind,
-                       out, basis)
+                       out, basis, coeffs)

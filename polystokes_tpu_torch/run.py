@@ -96,8 +96,8 @@ def build_argparser():
     return p
 
 
-# flag -> the ROADMAP.md item that ports its mode (--solver eigen, --scheme,
-# --deflation and --bf16-coeffs raise through SolverParams, naming theirs)
+# flag -> the ROADMAP.md item that ports its mode (--solver eigen and
+# --scheme raise through SolverParams, naming theirs)
 _UNPORTED = (
     ("export_prefix", "Queue 1 item 13 (export)"),
     ("export_mtx", "Queue 1 item 13 (export)"),

@@ -21,7 +21,13 @@ runs on one of two layouts, picked as the JAX package picks them
   DIAGONAL, IDENTITY) one kernel does the CG's vector update,
   preconditioner and dots; under ``fuse_pap`` on the reduced step it also
   does the finish (and with ``fuse_expand`` the expand), which the apply
-  then defers to it.
+  then defers to it.  ``coeff_bf16`` stores the kernels' coefficient stack
+  and reduced-face masks in bfloat16 (the arithmetic stays in the compute
+  dtype); the unpacked path ignores it, as JAX's does.
+
+On either layout ``deflation`` wraps the preconditioner in the A-DEF2
+two-level correction of ``deflation.py`` and projects the initial guess;
+the fused update is then off, as in JAX.
 """
 from __future__ import annotations
 
@@ -38,6 +44,14 @@ from . import krylov
 from .basis import monomial_matrix, monomial_shift_matrix, n_monomials
 from .classify import REDUCED, SOLID, UNSOLVED, Classification, classify, effective_max_regions, is_active
 from .config import MINWEIGHT, PreconditionerType, SolverParams, SolverType
+from .deflation import (
+    build_deflation,
+    deflate_guess_packed,
+    deflate_guess_ptau,
+    deflated_precond_packed,
+    deflated_precond_ptau,
+    deflation_supported,
+)
 from .grid import EDGE_OFFSET_AXES, Grid
 from .operators import (
     Assembled,
@@ -316,7 +330,10 @@ def _region_algebra_packed(grid: Grid, cls: Classification, asm: Assembled, para
     safe_cube = roc.clamp(0, R - 1).long()
     cube_ok = (roc >= 0).to(dtype)
     rsum = RegionSum(roc, R)  # built here, once: a static index tensor inside the captured pass
-    red_packed = torch.stack([_face_to_slot(m.to(dtype), a) for a, m in enumerate(reduced_face_masks(cls))], dim=0).contiguous()
+    # under coeff_bf16 the 0/1 masks are stored in bfloat16 (exact), halving
+    # the expand kernel's reads
+    red_packed = torch.stack([_face_to_slot(m.to(dtype), a) for a, m in enumerate(reduced_face_masks(cls))], dim=0)
+    red_packed = red_packed.to(_storage(params) or dtype).contiguous()
     mtx = asm.binv if matrix is None else matrix
 
     def algebra(mom):
@@ -332,15 +349,21 @@ def _region_algebra_packed(grid: Grid, cls: Classification, asm: Assembled, para
     return algebra, red_packed
 
 
+def _storage(params: SolverParams):
+    """The coefficient stack's storage dtype: bfloat16 under coeff_bf16,
+    else None (the compute dtype)."""
+    return torch.bfloat16 if params.coeff_bf16 else None
+
+
 def make_apply_packed(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int):
     """The kernel apply on packed [7, nx, ny, nz] vectors: moments kernel
     -> region algebra -> expand kernel -> reduced-apply kernel (which
     recomputes s rather than storing it); the uniform solve runs the
     uniform-apply kernel alone."""
     if not params.do_reduced_regions:
-        coeffs = pack_coeffs(asm)
+        coeffs = pack_coeffs(asm, storage_dtype=_storage(params))
         return lambda xp: apply_uniform_packed(xp, coeffs)
-    coeffs = pack_coeffs(asm, cls)
+    coeffs = pack_coeffs(asm, cls, storage_dtype=_storage(params))
     T, basis = params.tile_size, params.basis
     algebra, red_packed = _region_algebra_packed(grid, cls, asm, params, R)
 
@@ -364,14 +387,14 @@ def make_apply_packed_pap(grid: Grid, cls: Classification, asm: Assembled, param
     kernel expands too) or (out_grid, u).  Uniform: one kernel gives A x and
     the partials."""
     if not params.do_reduced_regions:
-        coeffs = pack_coeffs(asm)
+        coeffs = pack_coeffs(asm, storage_dtype=_storage(params))
 
         def apply_dot_uniform(xp):
             out, pap = apply_uniform_pap_packed(xp, coeffs)
             return out, torch.sum(pap)
 
         return apply_dot_uniform
-    coeffs = pack_coeffs(asm, cls)
+    coeffs = pack_coeffs(asm, cls, storage_dtype=_storage(params))
     T, basis = params.tile_size, params.basis
     algebra, red_packed = _region_algebra_packed(grid, cls, asm, params, R)
     fuse_expand = _fuse_expand_ok(params)
@@ -407,8 +430,10 @@ def make_fused_update(params: SolverParams, factors, cls: Classification, asm: A
     (``cg_update_packed``) or, on the reduced step, the deferred pair of
     ``make_apply_packed_pap(defer_finish=True)``: (out_grid, v) goes to
     ``exp_finish_update_packed``, (out_grid, u) to ``finish_update_packed``.
-    ``out`` (x', r') names the tensors the kernel writes x' and r' to."""
-    if not params.fuse_update:
+    ``out`` (x', r') names the tensors the kernel writes x' and r' to.
+    Deflation wraps the preconditioner with an apply, so it is None under
+    ``deflation`` too."""
+    if not params.fuse_update or params.deflation:
         return None
     if params.preconditioner == PreconditionerType.CELL_ARROW:
         fstack, kind = pack_arrow_factors(factors), "arrow"
@@ -418,7 +443,7 @@ def make_fused_update(params: SolverParams, factors, cls: Classification, asm: A
         fstack, kind = None, "none"
     else:
         return None
-    coeffs = pack_coeffs(asm, cls) if params.do_reduced_regions else None
+    coeffs = pack_coeffs(asm, cls, storage_dtype=_storage(params)) if params.do_reduced_regions else None
     fuse_expand = _fuse_expand_ok(params)
     T = params.tile_size
 
@@ -488,7 +513,7 @@ def make_preconditioner_packed(grid: Grid, cls: Classification, asm: Assembled, 
     if "sinv" not in factors:
         return solve_arrow
     T, basis = params.tile_size, params.basis
-    coeffs = pack_coeffs(asm, cls)
+    coeffs = pack_coeffs(asm, cls, storage_dtype=_storage(params))
     algebra, red_packed = _region_algebra_packed(grid, cls, asm, params, asm.binv.shape[0], matrix=factors["sinv"])
 
     def solve_region(rp):
@@ -525,30 +550,63 @@ def _warm_guess(grid: Grid, cls: Classification, asm: Assembled, params: SolverP
                 te=tuple(2.0 * asm.uinv_e[e] * t.te[e] for e in range(3)))
 
 
-def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParams, initial_guess=None, pfac=None):
+def _make_deflation(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams):
+    """The A-DEF2 state (``deflation.build_deflation``) under ``deflation``
+    where ``deflation_supported``, else None; where it is not supported it
+    warns and the step runs undeflated, as in the JAX package.  The probes
+    run through the step's own apply on packed vectors (the unpacked apply
+    between an unpack and a pack where the step runs unpacked)."""
+    if not params.deflation:
+        return None
+    if not deflation_supported(grid, params):
+        warnings.warn(
+            "deflation requested but unsupported for this grid/params "
+            "(coarse tile must divide the resolution; reduced solves must "
+            "be tiled with deflation_tile a multiple of tile_size) — "
+            "continuing without deflation",
+            stacklevel=2,
+        )
+        return None
+    R = effective_max_regions(grid, params)
+    if _use_packed(grid, params):
+        ap = make_apply_packed(grid, cls, asm, params, R)
+    else:
+        inner = make_apply(grid, cls, asm, params, R)
+
+        def ap(xp):
+            return pack_ptau(inner(unpack_ptau(xp)))
+
+    return build_deflation(grid, cls, params, ap)
+
+
+def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParams, initial_guess=None, pfac=None,
+                         defl=None):
     """(apply_K, apply_dot, fused_update, precond, b_K, x0_K): the
-    unsharded, undeflated branches of the JAX package's
-    ``_build_krylov_system``.  Packed (``_use_packed``), the vectors are
-    [7, nx, ny, nz] tensors, ``apply_dot`` the fused apply with <p, A p>
-    under ``fuse_pap``, else None, and ``fused_update`` the fused CG update
-    under ``fuse_update`` with a pointwise preconditioner, else None.
-    Unpacked, the vectors are flat (``operators.ravel_ptau``), the apply
-    and the preconditioner are ``make_apply`` and
-    ``precond.make_preconditioner`` on them, and both fused forms are None.
-    ``initial_guess`` (a PTau) seeds the solve; without it
-    ``device_warm_start`` and ``use_warm_start`` together seed it with
-    ``_warm_guess``, else it starts from zero.  ``pfac``
+    unsharded branches of the JAX package's ``_build_krylov_system``.
+    Packed (``_use_packed``), the vectors are [7, nx, ny, nz] tensors,
+    ``apply_dot`` the fused apply with <p, A p> under ``fuse_pap``, else
+    None, and ``fused_update`` the fused CG update under ``fuse_update``
+    with a pointwise preconditioner, else None.  Unpacked, the vectors are
+    flat (``operators.ravel_ptau``), the apply and the preconditioner are
+    ``make_apply`` and ``precond.make_preconditioner`` on them, and both
+    fused forms are None.  ``initial_guess`` (a PTau) seeds the solve;
+    without it ``device_warm_start`` and ``use_warm_start`` together seed it
+    with ``_warm_guess``, else it starts from zero.  ``pfac``
     (``precond_factors_packed``) skips the packed factors, which
-    ``solve_chunked`` computes once."""
+    ``solve_chunked`` computes once.  ``defl`` (a ``DeflationState``) wraps
+    the preconditioner in the A-DEF2 correction and projects x0."""
     R = effective_max_regions(grid, params)
     b = build_rhs(grid, cls, asm, params, R)
     if initial_guess is None and params.device_warm_start and params.use_warm_start:
         initial_guess = _warm_guess(grid, cls, asm, params)
     if not _use_packed(grid, params):
+        apply_p, precond_p = make_apply(grid, cls, asm, params, R), make_preconditioner(grid, cls, asm, params)
         b_K = ravel_ptau(b)
         x0_K = torch.zeros_like(b_K) if initial_guess is None else ravel_ptau(initial_guess).to(b_K.dtype)
-        return (_flat(make_apply(grid, cls, asm, params, R), grid), None, None,
-                _flat(make_preconditioner(grid, cls, asm, params), grid), b_K, x0_K)
+        if defl is not None:
+            x0_K = ravel_ptau(deflate_guess_ptau(defl, apply_p, b, unravel_ptau(x0_K, grid)))
+            precond_p = deflated_precond_ptau(defl, apply_p, base=precond_p)
+        return _flat(apply_p, grid), None, None, _flat(precond_p, grid), b_K, x0_K
     b_K = pack_ptau(b)
     apply_K = make_apply_packed(grid, cls, asm, params, R)
     if pfac is None:
@@ -558,6 +616,9 @@ def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParam
                  if params.fuse_pap else None)
     precond = make_preconditioner_packed(grid, cls, asm, params, pfac)
     x0_K = torch.zeros_like(b_K) if initial_guess is None else pack_ptau(initial_guess).to(b_K.dtype)
+    if defl is not None:
+        x0_K = deflate_guess_packed(defl, apply_K, b_K, x0_K)
+        precond = deflated_precond_packed(defl, apply_K, base=precond)
     return apply_K, apply_dot, fused_update, precond, b_K, x0_K
 
 
@@ -693,13 +754,13 @@ def _write_back(grid: Grid, scene: Scene, params: SolverParams, cls: Classificat
     return new_vel, valid, stats
 
 
-def _chunk_init(grid: Grid, scene: Scene, params: SolverParams, cls, asm, initial_guess=None, pfac=None):
+def _chunk_init(grid: Grid, scene: Scene, params: SolverParams, cls, asm, initial_guess=None, pfac=None, defl=None):
     """(carry, loop): the initial PCG carry and the ``krylov.PCGLoop`` that
     holds the Krylov system, whose CUDA graph every segment replays (JAX's
     ``_chunk_init`` returns the carry and rebuilds the system inside each
-    jitted segment)."""
+    jitted segment, each with the deflated preconditioner of ``defl``)."""
     apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params,
-                                                                                 initial_guess, pfac)
+                                                                                 initial_guess, pfac, defl)
     loop = krylov.PCGLoop(apply_K, precond, tol=params.tolerance, max_iters=params.max_iterations, apply_dot=apply_dot,
                           fused_update=fused_update)
     return krylov.pcg_init(apply_K, b_K, x0_K, precond), loop
@@ -770,10 +831,13 @@ def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
     (``_fallback``), else PCG's x, iterations and error;
     ``stats["fallback_kept"]`` says which ("bicgstab" or "pcg", None where
     no fallback ran), and ``operator_applies`` and ``loop_passes`` are the
-    sum of both solves'."""
+    sum of both solves'.  Under ``deflation`` the A-DEF2 state is built
+    after the setup (``_make_deflation``) and the solves start from the
+    projected guess."""
     cls, asm = _setup(grid, scene, params)
+    defl = _make_deflation(grid, cls, asm, params)
     apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params,
-                                                                                 initial_guess)
+                                                                                 initial_guess, defl=defl)
     capture, kept = 0.0, None
     tol, max_iters = params.tolerance, params.max_iterations
     if not params.do_solve:
@@ -832,12 +896,14 @@ def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters:
     t_start = time.monotonic()
     _v("setup...")
     cls, asm = _setup(grid, scene, params)
+    _v("deflation build...")
+    defl = _make_deflation(grid, cls, asm, params)
     pfac = None
     if _use_packed(grid, params):
         _v("precond factors...")
         pfac = precond_factors_packed(grid, cls, asm, params)
     _v("chunk init...")
-    carry, loop = _chunk_init(grid, scene, params, cls, asm, initial_guess, pfac)
+    carry, loop = _chunk_init(grid, scene, params, cls, asm, initial_guess, pfac, defl)
     _v("first segment...")
     if resume and state_path and os.path.exists(state_path):
         with np.load(state_path) as d:

@@ -143,7 +143,6 @@ def test_cli_modes_on_the_cpu(tmp_path, capsys, monkeypatch):
 _ITEMS = [
     (["--export-prefix", "x."], "Queue 1 item 13"), (["--export-mtx"], "Queue 1 item 13"), (["--viz"], "Queue 1 item 13"),
     (["--solver", "eigen"], "Queue 1 item 13"), (["--scheme", "all_dofs"], "Queue 1 item 13"),
-    (["--deflation"], "Queue 1 item 15"), (["--bf16-coeffs"], "Queue 1 item 15"),
 ]
 
 
@@ -158,3 +157,14 @@ def test_unported_flags_raise_before_a_scene(monkeypatch):
         with pytest.raises(NotImplementedError, match=item):
             run.main(flags + ["--device", "cpu"])
     assert run.build_argparser().parse_args([]).device == "cuda"
+
+
+@pytest.mark.parametrize("flags", [["--bf16-coeffs", "--pallas"], ["--deflation"], ["--deflation", "--pallas"]],
+                         ids=["bf16-pallas", "deflation", "deflation-pallas"])
+def test_bf16_and_deflation_flags_run(flags, capsys):
+    """--bf16-coeffs and --deflation reach SolverParams and the step runs and
+    converges at 16^3 (tile 8, the deflation tile with it)."""
+    run.main(["--scene", "jelly_jam", "--n", "16", "--fp64", "--tile-size", "8", "--max-iterations", "2000",
+              "--tolerance", "1e-4", "--precond", "cell_arrow", "--device", "cpu"] + flags)
+    out = capsys.readouterr().out
+    assert "step 0:" in out and "converged=True" in out

@@ -311,11 +311,11 @@ def test_uniform_region_arrow_is_cell_arrow():
 
 @pytest.mark.parametrize("name", ["MULTIGRID"])
 def test_other_preconditioners_still_raise(name):
-    """MULTIGRID is ported; what item 15 leaves with it, deflation on top
-    of a preconditioner, still raises."""
+    """MULTIGRID is ported, and so is deflation on top of it (item 15):
+    both construct, as in JAX."""
     assert SolverParams(preconditioner=PreconditionerType[name]).preconditioner == PreconditionerType[name]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 15"):
-        SolverParams(preconditioner=PreconditionerType[name], deflation=True)
+    p = SolverParams(preconditioner=PreconditionerType[name], deflation=True)
+    assert p.preconditioner == PreconditionerType[name] and p.deflation
 
 
 def test_params_from_jax_carries_region_arrow():

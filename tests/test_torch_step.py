@@ -101,13 +101,26 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("field, value", [
-    ("export_matrices", True), ("export_stats", True), ("coeff_bf16", True),
-    ("deflation", True), ("export_component_matrices", True), ("matrix_scheme", MatrixScheme.ALL_DOFS),
-    ("solver_type", SolverType.EIGEN),
+    ("export_matrices", True), ("export_stats", True), ("export_component_matrices", True),
+    ("matrix_scheme", MatrixScheme.ALL_DOFS), ("solver_type", SolverType.EIGEN),
 ])
 def test_unported_options_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SolverParams(**{field: value})
+
+
+@pytest.mark.parametrize("field", ["coeff_bf16", "deflation"])
+def test_bf16_and_deflation_options_run(field):
+    """coeff_bf16 and deflation construct and step: honey_coil 16^3, tiled
+    at tile 8, packed, CELL_ARROW, fp64, converged."""
+    from polystokes_tpu_torch.scenes.builders import honey_coil
+
+    grid, scene = honey_coil(n=16, dtype=torch.float64, device="cpu")
+    params = SolverParams(**{field: True}, dtype=torch.float64, tile_size=8, use_pallas=True,
+                          preconditioner=PreconditionerType.CELL_ARROW, tolerance=1e-4, bicgstab_fallback=False)
+    assert getattr(params, field) is True
+    _, _, stats = tstep(grid, scene, params)
+    assert stats["converged"] and stats["error"] < 1e-4 and stats["boundary_active"] == 0
 
 
 @pytest.mark.parametrize("field", ["fuse_pap", "do_reduced_regions", "fuse_update", "fuse_expand", "do_tile",
