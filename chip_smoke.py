@@ -226,7 +226,25 @@ Phases (any failed check exits non-zero before the final line):
      projected guess and one unfused apply a pass besides the path's own);
      iterations, ms per apply and step seconds beside the undeflated
      step's; a deflated 32^3 step (tile 8, tol 1e-5) on the card against
-     the CPU port (phase 10's bound).
+     the CPU port (phase 10's bound);
+ 27. the x-slab step (polystokes_tpu_torch/parallel): the halo forms of
+     kernels 1 (K = 10 and 4), 3 and 7 (halo=HALO_X, counted as
+     <name>_halo[_bf16]) on each of SLABS slabs cut from phase 2's inputs,
+     the stack in f32 and in bf16, each within KERNEL_RTOL of its twin,
+     the slabs joined bit-equal to phase 2's form without a halo; the
+     middle slab's halo form timed beside the form without a halo on the
+     same slab (device ms, bound over the input planes the kernel reads:
+     the slab's and one halo plane a side); the sharded apply
+     at 2 and 4 slabs of the card bit-equal to the unsharded one on A's,
+     A_t's and B's systems, its device ms beside the unfused apply's;
+     sharded_step on A_t's system at SLABS slabs twice (converged,
+     graphed, bit-equal to the unsharded unfused step A_t_unfused with
+     equal iterations, SLABS launches of kernels 1-3 an apply, none of
+     4-11; ms per apply and peak memory), and once on B's, A_aff's and
+     the bf16 A_t's and B's systems (the launches of the other halo
+     forms); a 2 x 2 mesh warns and runs unpacked with no launch;
+     dryrun_multichip(8) on the card; with two cards or more, the apply
+     and the step on a mesh of cuda:0 and cuda:1.
 Every packed phase checks that check_pallas's fallback did not fire
 (packed_preflight) and that the packed layout takes its configuration.
 Phase 2 also holds the tile-dependent kernels (moments, expand,
@@ -252,6 +270,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -329,6 +348,19 @@ MAIN_PATH.update({"moments_bf16": "A_bf16", "expand_bf16": "A_bf16", "apply_redu
                   "grid_mom_pap_bf16": "A_bf16", "finish_bf16": "A_bf16", "apply_uniform_pap_bf16": "B_bf16",
                   "apply_uniform_bf16": "B_bf16", "transpose_u_bf16": "R_bf16", "forward_s_bf16": None,
                   "combine_bf16": None, "finish_update_bf16": "F_prime_bf16", "exp_finish_update_bf16": "F_bf16"})
+# the x-slab paths of phase 27: a sharded step on SLABS slabs of the card
+# launches each halo form (or expand) SLABS times an apply; (base path,
+# whether its stack is bf16)
+SLABS = 4
+HALO = "_halo"
+HALO_FORMS = ("moments", "apply_reduced", "apply_uniform")
+COUNTERS += tuple(k + HALO for k in HALO_FORMS) + tuple(k + HALO + BF16 for k in HALO_FORMS)
+SHARD_PATHS = {"A_t_s4": ("A", False), "B_s4": ("B", False), "A_aff_s4": ("A", False), "A_t_s4_bf16": ("A", True),
+               "B_s4_bf16": ("B", True)}
+MAIN_PATH.update({"moments_halo": "A_t_s4", "apply_reduced_halo": "A_t_s4", "apply_uniform_halo": "B_s4",
+                  "moments_halo_k4": "A_aff_s4", "moments_halo_bf16": "A_t_s4_bf16",
+                  "apply_reduced_halo_bf16": "A_t_s4_bf16", "apply_uniform_halo_bf16": "B_s4_bf16"})
+TILED_PATHS["A_t_unfused"] = "unfused"
 # the deflated paths of phase 26: the 189 probe applies of E, the projected
 # guess, pcg_init's apply and deflated preconditioner, then per pass the
 # step's fused apply and the preconditioner's unfused apply
@@ -452,22 +484,31 @@ def graph_ms(fn, n=20, reps=5):
     return statistics.median(times)
 
 
-def bound(name, plane, small_bytes, itemsize, kind="arrow", stored_itemsize=None):
+def bound(name, plane, small_bytes, itemsize, kind="arrow", stored_itemsize=None, slots_in=None):
     """(ms, 'bytes' or 'operations'): the larger of the HBM time of the
     channels the kernel must read and write once (plus its small per-cube
     arrays) and the float32 time of its flops; an update kernel reads the
     factor channels of its preconditioner kind.  ``stored_itemsize`` (2:
-    the bf16 form) is the size of a value of the coefficient channels."""
+    the bf16 form) is the size of a value of the coefficient channels;
+    ``slots_in`` (a halo form: the padded slab's) the slots of each input
+    channel, ``plane`` by default."""
     _, _, read, written, flops = KERNELS[name]
     if name in ("cg_update", "finish_update", "exp_finish_update"):
         read += UPDATE_FACTORS[kind] - UPDATE_FACTORS["arrow"]
     stored = 0 if stored_itemsize is None else COEFF_CHANNELS[name] * (itemsize - stored_itemsize)
-    t_bytes = (((read + written) * itemsize - stored) * plane + small_bytes) / HBM_BYTES_PER_S
+    slots_in = plane if slots_in is None else slots_in
+    t_bytes = ((read * itemsize - stored) * slots_in + written * itemsize * plane + small_bytes) / HBM_BYTES_PER_S
     t_ops = flops * plane / F32_FLOPS_PER_S
     return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
 
 
 def expected_launches(path, applies):
+    if path in SHARD_PATHS:  # each halo form (and expand) once a slab
+        base, bf16 = SHARD_PATHS[path]
+        names = ("apply_uniform_halo",) if base == "B" else ("moments_halo", "expand", "apply_reduced_halo")
+        counts = dict.fromkeys(COUNTERS, 0)
+        counts.update({name + (BF16 if bf16 else ""): SLABS * applies for name in names})
+        return counts
     if path in BF16_PATHS:  # the same counts, of the bf16 forms
         counts = expected_launches(BF16_PATHS[path], applies)
         for name in COEFF_CHANNELS:
@@ -909,6 +950,8 @@ def main() -> None:
     from polystokes_tpu_torch import packed_apply as pa
     from polystokes_tpu_torch import BasisOrder, PreconditionerType, solver
     from polystokes_tpu_torch.classify import effective_max_regions
+    from polystokes_tpu_torch.parallel import make_apply_packed_sharded, make_mesh, sharded_step
+    from polystokes_tpu_torch.parallel.dryrun import dryrun_multichip
     from polystokes_tpu_torch.scenes.builders import honey_coil
 
     # -- phase 1: build
@@ -979,10 +1022,11 @@ def main() -> None:
         "combine": (lambda: pa.combine_packed(xp, coeffs, s_twin, u_twin),
                     lambda: pa.combine_packed_plain(xp, coeffs, s_twin, u_twin), 0),
     }
-    def measure(name, kernel, twin, small_bytes, kind=None, slots=plane, where="", stored_itemsize=None):
+    def measure(name, kernel, twin, small_bytes, kind=None, slots=plane, where="", stored_itemsize=None, slots_in=None):
         """Compare a kernel with its twin, time both and reckon its bound
         over ``slots`` slots of each channel (the coefficient channels at
-        ``stored_itemsize`` bytes a value where given)."""
+        ``stored_itemsize`` bytes a value where given; each input channel
+        over ``slots_in`` slots where given: a halo form's padded slab)."""
         label = (name if kind is None else f"{name} kind {kind}") + where
         got, ref = kernel(), twin()
         torch.cuda.synchronize()
@@ -990,7 +1034,8 @@ def main() -> None:
         ms_twin = median_ms(twin)
         ms_kernel = median_ms(kernel)
         ms_device = graph_ms(kernel)
-        bound_ms, bound_by = bound(name, slots, small_bytes, xp.element_size(), kind or "arrow", stored_itemsize)
+        bound_ms, bound_by = bound(name, slots, small_bytes, xp.element_size(), kind or "arrow", stored_itemsize,
+                                   slots_in)
         print(f"phase 2 {label}: kernel {ms_kernel:.4f} ms (device {ms_device:.4f} ms) twin {ms_twin:.4f} ms "
               f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms_kernel:.1f} % of the bound "
               f"({100 * bound_ms / ms_device:.1f} % on device time)", flush=True)
@@ -1191,8 +1236,9 @@ def main() -> None:
         fail(f"the REGION_ARROW solve is not symmetric: {asym} > {SYM_RTOL}")
 
     # -- phases 4-7: the paths, each with its own launch counts
-    def drive(label, p, n_check=None, case=None):
-        """step() on ``case`` (grid, scene), honey_coil 128^3 by default."""
+    def drive(label, p, n_check=None, case=None, mesh=None):
+        """step() on ``case`` (grid, scene), honey_coil 128^3 by default;
+        with ``mesh``, sharded_step's, which must take the x-slab path."""
         g, sc = case or (grid, scene)
         if p.use_pallas and not solver._use_packed(g, p):
             fail(f"{label}: use_pallas=True but the packed layout does not take this configuration")
@@ -1200,7 +1246,12 @@ def main() -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        vel, _, stats = solver.step(g, sc, p)
+        if mesh is None:
+            vel, _, stats = solver.step(g, sc, p)
+        else:
+            vel, _, stats = sharded_step(g, p, mesh)(sc)
+            if not stats["sharded"]:
+                fail(f"{label}: the solve did not take the x-slab path")
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         stats["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -1231,7 +1282,8 @@ def main() -> None:
             if n and record:
                 # an affine path's launches of a kernel that reads the basis
                 # are its K = 4 form's
-                row = name + K4 if path in AFFINE_PATHS and name in BASIS_KERNELS else name
+                affine = path in AFFINE_PATHS or path == "A_aff_s4"
+                row = name + K4 if affine and name in BASIS_KERNELS + ("moments_halo",) else name
                 table[row]["launches_by_path"][path] = n
         if record:
             step_ms.setdefault(path, []).append(stats["ms_per_apply"])
@@ -2160,6 +2212,170 @@ def main() -> None:
     print(f"phase 26 deflated {N_CPU}^3 tile {TILE_8}, card and CPU:", flush=True)
     agree(f"phase 26 deflated {N_CPU}^3 tile {TILE_8} velocities, card against CPU", step_32("cuda", p32d),
           step_32("cpu", p32d))
+
+    t27 = time.perf_counter()
+    # -- phase 27: the x-slab step.  The halo forms of kernels 1, 3 and 7 on
+    # SLABS slabs cut from phase 2's inputs (windows of the zero-padded
+    # arrays, HALO_X planes deeper on either side), the stack in f32 and in
+    # bf16: each slab against the twin, the slabs joined against phase 2's
+    # form without a halo, the middle slab timed beside the form without a
+    # halo on the same planes.  The bound counts each input over nxl + 2
+    # planes: the kernels read one halo plane a side of the HALO_X
+    # (fused_apply.cu)
+    halo_x = pa.HALO_X
+    nxl = N_MAIN // SLABS
+
+    def halo_slabs(t):
+        if t is None:
+            return [None] * SLABS
+        padded = torch.nn.functional.pad(t, (0, 0, 0, 0, halo_x, halo_x))
+        return [padded[:, i * nxl:(i + 1) * nxl + 2 * halo_x].contiguous() for i in range(SLABS)]
+
+    def halo_kernel(name, basis, twin=False):
+        """f(x, c, u, halo): the kernel's wrapper, or its twin."""
+        if name == "moments":
+            f = pa.moments_packed_plain if twin else pa.moments_packed
+            return lambda x_, c_, u_, h: f(x_, c_, TILE, basis, halo=h)
+        if name == "apply_reduced":
+            f = pa.apply_reduced_packed_plain if twin else pa.apply_reduced_packed
+            return lambda x_, c_, u_, h: f(x_, c_, u_, halo=h)
+        f = pa.apply_uniform_packed_plain if twin else pa.apply_uniform_packed
+        return lambda x_, c_, u_, h: f(x_, c_, halo=h)
+
+    bf = torch.bfloat16
+    c16, cu16 = pa.pack_coeffs(asm, cls, storage_dtype=bf), pa.pack_coeffs(asm_u, storage_dtype=bf)
+    quad, aff = BasisOrder.QUADRATIC, BasisOrder.AFFINE
+    # row: (kernel, basis, x, stack, u, bytes of a stored coefficient value)
+    halo_rows = {"moments_halo": ("moments", quad, xp, coeffs, None, None),
+                 "moments_halo_k4": ("moments", aff, xp, coeffs, None, None),
+                 "apply_reduced_halo": ("apply_reduced", quad, xp, coeffs, u_twin, None),
+                 "apply_uniform_halo": ("apply_uniform", quad, xu, coeffs_u, None, None),
+                 "moments_halo_bf16": ("moments", quad, xp, c16, None, 2),
+                 "apply_reduced_halo_bf16": ("apply_reduced", quad, xp, c16, u_twin, 2),
+                 "apply_uniform_halo_bf16": ("apply_uniform", quad, xu, cu16, None, 2)}
+    for row, (name, basis, x_, c_, u_, stored) in halo_rows.items():
+        kern, twin = halo_kernel(name, basis), halo_kernel(name, basis, twin=True)
+        xs, cs, us = halo_slabs(x_), halo_slabs(c_), halo_slabs(u_)
+        counter = name + HALO + (BF16 if stored else "")
+        pieces, worst = [], 0.0
+        for i in range(SLABS):
+            before = dict(pa.LAUNCHES)
+            got = kern(xs[i], cs[i], us[i], halo_x)
+            torch.cuda.synchronize()
+            if {k: pa.LAUNCHES[k] - before[k] for k in before if pa.LAUNCHES[k] != before[k]} != {counter: 1}:
+                fail(f"phase 27 {row}: slab {i} did not launch {counter} once")
+            worst = max(worst, compare(name, got, twin(xs[i], cs[i], us[i], halo_x), f"{row} slab {i}"))
+            pieces.append(got)
+        joined = torch.cat(pieces, dim=0 if name == "moments" else 1)
+        whole_equal = torch.equal(joined, kern(x_, c_, u_, 0))
+        small = pieces[1].numel() * pieces[1].element_size() if name == "moments" else 0
+        m = measure(name, lambda: kern(xs[1], cs[1], us[1], halo_x), lambda: twin(xs[1], cs[1], us[1], halo_x), small,
+                    slots=plane // SLABS, where=f" {row} slab 1 of {SLABS}", stored_itemsize=stored,
+                    slots_in=plane // SLABS * (nxl + 2) // nxl)
+        m["max_abs_err"] = worst
+        inner = [None if t is None else t[:, halo_x:halo_x + nxl].contiguous() for t in (xs[1], cs[1], us[1])]
+        ms_plain_form = graph_ms(lambda: kern(*inner, 0))
+        base = table[name + (K4 if basis == aff else "") + (BF16 if stored else "")]
+        table[row] = {"name": row, "route": "cuda", "source": f"polystokes_tpu_torch/csrc/{KERNELS[name][0]}",
+                      "replaces": KERNELS[name][1], "halo": halo_x, "slab": [nxl + 2 * halo_x, N_MAIN, N_MAIN],
+                      "launches": None, **m, "library_ms": None, "launches_by_path": {},
+                      "no_halo_same_slab_device_ms": ms_plain_form, "whole_array_device_ms": base["device_ms"]}
+        print(f"phase 27 {row}: slabs within {worst:.3e} of the twins, joined bit-equal to phase 2's form without a "
+              f"halo {whole_equal}; device {m['device_ms']:.4f} ms against {ms_plain_form:.4f} ms without a halo on "
+              f"the same planes ({m['device_ms'] / ms_plain_form:.3f}x), {SLABS} slabs against the whole array's "
+              f"{base['device_ms']:.4f} ms ({SLABS * m['device_ms'] / base['device_ms']:.3f}x); bound "
+              f"{m['bound_ms']:.4f} ms ({m['bound_by']})", flush=True)
+        if not whole_equal:
+            fail(f"phase 27 {row}: the slabs joined differ from the form without a halo")
+    del c16, cu16, xs, cs, us, pieces, joined, inner, kern, twin
+
+    # the sharded apply at 2 and SLABS slabs of the card against the
+    # unsharded (unfused) apply, on A's, A_t's and B's systems
+    cls_t, asm_t = solver._setup(grid, scene, p_t)
+    ref_t = None
+    for label, p, c_cls, c_asm, x_ in (("A", p_a, cls, asm, xp), ("A_t", p_t, cls_t, asm_t, xp),
+                                       ("B", p_b, cls_u, asm_u, xu)):
+        r_ = effective_max_regions(grid, p)
+        unsharded = solver.make_apply_packed(grid, c_cls, c_asm, p, r_)
+        ref = unsharded(x_)
+        ref_t = ref if label == "A_t" else ref_t
+        ms_ref = graph_ms(lambda: unsharded(x_))
+        for n in (2, SLABS):
+            sharded = make_apply_packed_sharded(grid, c_cls, c_asm, p, r_, make_mesh([dev] * n, axes=("x",)))
+            equal = torch.equal(sharded(x_), ref)
+            ms_sh = graph_ms(lambda: sharded(x_))
+            print(f"phase 27 sharded apply {label} on {n} slabs of the card: bit-equal to the unsharded apply {equal}; "
+                  f"device {ms_sh:.4f} ms an apply against {ms_ref:.4f} ms unsharded ({ms_sh / ms_ref:.3f}x)", flush=True)
+            if not equal:
+                fail(f"phase 27: the sharded apply of {label} on {n} slabs differs from the unsharded apply")
+        del unsharded, sharded
+
+    # sharded_step on A_t's system at SLABS slabs, twice, against the
+    # unsharded unfused step; then B, A_aff and the bf16 A_t and B once each
+    mesh_s = make_mesh([dev] * SLABS, axes=("x",))
+    vel_u, st_u, l_u = drive(f"phase 27 A_t_unfused {N_MAIN}^3 tile {TILE} (fuse_pap=False, unsharded)",
+                             p_t.replace(fuse_pap=False), tiled)
+    check_launches("A_t_unfused", "phase 27 A_t_unfused", st_u, l_u, record=False)
+    runs = [drive(f"phase 27 A_t_s4 {N_MAIN}^3 tile {TILE} on {SLABS} slabs of the card, run {i + 1}", p_t, tiled,
+                  mesh=mesh_s) for i in range(2)]
+    for vel_, st_, l_ in runs:
+        check_launches("A_t_s4", "phase 27 A_t_s4", st_, l_)
+        if not st_["capture_seconds"] > 0.0:
+            fail("phase 27 A_t_s4: the sharded pass was not captured in a CUDA graph")
+    check_repeat("phase 27 A_t_s4", runs[0][0], runs[0][1], runs[1][0], runs[1][1])
+    st_s = runs[0][1]
+    same = st_s["iterations"] == st_u["iterations"] and all(torch.equal(a, b) for a, b in zip(runs[0][0], vel_u))
+    print(f"phase 27 A_t_s4 against A_t_unfused: iterations {st_s['iterations']} ({st_u['iterations']}), velocities "
+          f"bit-equal {same}; ms per apply {runs[0][1]['ms_per_apply']:.4f} {runs[1][1]['ms_per_apply']:.4f} "
+          f"(unfused {st_u['ms_per_apply']:.4f}, A_t fused {sa1['ms_per_apply']:.4f}); step s "
+          f"{runs[0][1]['seconds']:.3f} {runs[1][1]['seconds']:.3f} ({st_u['seconds']:.3f}); capture "
+          f"{st_s['capture_seconds']:.3f} s; peak device memory {st_s['peak_gib']:.3f} GiB ({st_u['peak_gib']:.3f})",
+          flush=True)
+    if not same:
+        fail("phase 27: the sharded step differs from the unsharded unfused step")
+    del runs
+    for path, p in (("B_s4", p_b), ("A_aff_s4", p_t.replace(basis=BasisOrder.AFFINE)),
+                    ("A_t_s4_bf16", p_t.replace(coeff_bf16=True)), ("B_s4_bf16", p_b.replace(coeff_bf16=True))):
+        _, st_, l_ = drive(f"phase 27 {path} {N_MAIN}^3 on {SLABS} slabs of the card", p,
+                           (lambda n: n == 0) if path.startswith("B") else tiled, mesh=mesh_s)
+        check_launches(path, f"phase 27 {path}", st_, l_)
+
+    # a solve the slab path cannot take: a 2 x 2 mesh warns and runs the
+    # unpacked step on the first device, launching no kernel
+    g32, s32 = honey_coil(n=N_CPU, dtype=torch.float32, device=dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        pa.reset_launches()
+        _, _, st_g = sharded_step(g32, p32t, make_mesh([dev] * 4))(s32)
+        torch.cuda.synchronize()
+    warned = any("shard_map" in str(w.message) for w in caught)
+    print(f"phase 27 gated {N_CPU}^3 on a 2 x 2 mesh: warned {warned}, sharded {st_g['sharded']}, iterations "
+          f"{st_g['iterations']}, converged {st_g['converged']}, launches {sum(pa.LAUNCHES.values())}", flush=True)
+    if not (warned and st_g["converged"] and st_g["sharded"] is False and not any(pa.LAUNCHES.values())):
+        fail("phase 27: the gated solve did not warn, did not converge or launched kernels")
+    t0 = time.perf_counter()
+    dryrun_multichip(8)
+    print(f"phase 27 dryrun_multichip(8) on the card: {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # two cards: the apply and the step on a slab of each (eager: no graph
+    # across devices)
+    if torch.cuda.device_count() >= 2:
+        mesh2 = make_mesh(["cuda:0", "cuda:1"], axes=("x",))
+        sharded = make_apply_packed_sharded(grid, cls_t, asm_t, p_t, effective_max_regions(grid, p_t), mesh2)
+        equal = torch.equal(sharded(xp), ref_t)
+        vel2, st2, l2 = drive(f"phase 27 A_t on cuda:0 and cuda:1", p_t, tiled, mesh=mesh2)
+        applies = 1 + st2["loop_passes"]
+        want = {"moments_halo": 2 * applies, "expand": 2 * applies, "apply_reduced_halo": 2 * applies}
+        same = st2["iterations"] == st_u["iterations"] and all(torch.equal(a, b) for a, b in zip(vel2, vel_u))
+        print(f"phase 27 two cards: apply bit-equal {equal}; step bit-equal to A_t_unfused {same}, ms per apply "
+              f"{st2['ms_per_apply']:.4f}, capture {st2['capture_seconds']:.3f} s", flush=True)
+        if not (equal and same and {k: v for k, v in l2.items() if v} == want and st2["capture_seconds"] == 0.0):
+            fail("phase 27: the two-card mesh differs from one card or launched otherwise")
+        del sharded, vel2
+    else:
+        print(f"phase 27: the machine has {torch.cuda.device_count()} card, so no two-card mesh ran", flush=True)
+    del vel_u, cls_t, asm_t, ref_t
+    print(f"phase 27 wall: {time.perf_counter() - t27:.1f} s", flush=True)
 
     for name, entry in table.items():
         if MAIN_PATH[name] is None:

@@ -78,6 +78,25 @@
 //   moments 48 against 68, apply_reduced 96 against 124, the uniform
 //   kernels 84 against 112, finish 82 against 96.
 //
+// The halo forms (hx = HALO_X, stencil.cuh HaloDims): WINDOW_MOM, WINDOW_REDUCED
+//   and WINDOW_UNIFORM also run on an x-slab of a sharded apply whose inputs
+//   (x, the stack and, for WINDOW_REDUCED, u) carry hx planes from the
+//   neighbouring slabs on each side: moments_packed on the exchanged slab,
+//   apply_reduced_packed(up_prepadded=True) and
+//   apply_uniform_packed(prepadded=True) of polystokes_tpu/pallas_apply.py
+//   (polystokes_tpu/parallel/shard_apply.py).  The march is the same: a
+//   run's first and last planes stage g, h and w from the halo planes where
+//   the forms without a halo stage zeros, and w on the planes -1 and nx is
+//   computed where it is 0 without a halo.  The outputs cover the slab's nx
+//   planes.  The kernel loads the planes -1 .. nx of its inputs: out on
+//   plane i reads w_0 on i - 1 and i and w_1, w_2 on i and i + 1, and s on
+//   plane p reads g on p and p + 1 (g_0) and h on p - 1 and p, so every
+//   read lies on i - 1 .. i + 1 (the moments: s on the slab's planes).
+//   One halo plane a side suffices; the second of HALO_X = 2 (JAX's depth,
+//   kept for the exchange) is never read.  With hx = 0 a kernel reads and
+//   computes what it does without a halo.  Bound: the same channels, the
+//   inputs over nx + 2 planes.
+//
 // finish_kernel replaces finish_packed (_finish_kernel, _transpose_contrib).
 //   out = out_grid + [G Dt]^T (-u): the reduced branch, no mass terms (they
 //   are in out_grid).  Bound: 17 channels read (c[:7], out_grid, u), 7
@@ -115,7 +134,7 @@ inline int window_bytes(int mode, int by, int bz, int itemsize) {
 template <typename T, int MODE, int K = K_QUADRATIC, typename C = T>
 __global__ void __launch_bounds__(kThreads, MODE == WINDOW_MOM && sizeof(T) == 4 ? 4 : 2)
 plane_window_kernel(const T* __restrict__ x, const C* __restrict__ c, const T* __restrict__ u, T* __restrict__ out,
-                    T* __restrict__ mom, T* __restrict__ partials, Dims d, int run) {
+                    T* __restrict__ mom, T* __restrict__ partials, HaloDims d, int run) {
   // MOM: the moments, on columns of one cube; OUT: A x, through w
   constexpr bool MOM = MODE == WINDOW_GRID_MOM || MODE == WINDOW_MOM;
   constexpr bool OUT = MODE != WINDOW_MOM;
@@ -213,9 +232,11 @@ plane_window_kernel(const T* __restrict__ x, const C* __restrict__ c, const T* _
   // the moments of a plane of the cube.  On the halo planes x0 - 1 and x_end
   // only w_0 and w_1, w_2 are read (they may use a plane of g, h that was
   // not staged); a run clipped at nx has x_end = nx, whose g, h stage as 0.
-  // WINDOW_MOM runs it on the cube's planes only and keeps no w.
+  // WINDOW_MOM runs it on the cube's planes only and keeps no w.  With a
+  // halo, w on the planes -1 and nx is the real one the neighbour's slab
+  // has there; without, those planes are outside and w is 0.
   auto stage_w_own = [&](int i) {
-    const bool in = i >= 0 && i < d.nx && own_in;
+    const bool in = i >= -d.hx && i < d.nx + d.hx && own_in;
     const long long q = in ? d.at(i, j, k) : 0;
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -278,7 +299,7 @@ plane_window_kernel(const T* __restrict__ x, const C* __restrict__ c, const T* _
     sub_mass_terms(x, c, q, d, o);
 #pragma unroll
     for (int ch = 0; ch < 7; ++ch) {
-      out[ch * d.plane + q] = o[ch];
+      out[ch * d.cells() + q] = o[ch];
       dot += __ldg(x + ch * d.plane + q) * o[ch];
     }
   };
@@ -422,17 +443,21 @@ cudaError_t window_opt_in(int bytes) {
 
 // One launch of plane_window_kernel: by x bz columns over runs of `run`
 // planes (the moment modes: run = tile, and the column divides the cube;
-// K monomials; the stack stored in C).
+// K monomials; the stack stored in C).  hx: the x-halo of x, c and u, which
+// hold nx + 2 hx planes (the halo forms; 0 otherwise); the kernel gets
+// pointers to their plane hx.
 template <typename T, int MODE, int K = K_QUADRATIC, typename C = T>
 int plane_window(const T* x, const C* c, const T* u, T* out, T* mom, T* partials, int nx, int ny, int nz, int run, int by,
-                 int bz, cudaStream_t stream) {
-  if (by < 1 || bz < 1 || by * bz > kThreads || run < 1) return (int)cudaErrorInvalidValue;
+                 int bz, int hx, cudaStream_t stream) {
+  if (by < 1 || bz < 1 || by * bz > kThreads || run < 1 || hx < 0) return (int)cudaErrorInvalidValue;
   if ((MODE == WINDOW_GRID_MOM || MODE == WINDOW_MOM) && (run % by || run % bz)) return (int)cudaErrorInvalidValue;
   const int bytes = window_bytes(MODE, by, bz, (int)sizeof(T));
   const cudaError_t err = window_opt_in<T, MODE, K, C>(bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((nz + bz - 1) / bz), (unsigned)((ny + by - 1) / by), (unsigned)((nx + run - 1) / run));
-  plane_window_kernel<T, MODE, K, C><<<grid, dim3(bz, by), bytes, stream>>>(x, c, u, out, mom, partials, dims(nx, ny, nz), run);
+  const long long halo = (long long)hx * ny * nz;
+  plane_window_kernel<T, MODE, K, C><<<grid, dim3(bz, by), bytes, stream>>>(
+      x + halo, c + halo, u == nullptr ? nullptr : u + halo, out, mom, partials, halo_dims(nx, ny, nz, hx), run);
   return (int)cudaGetLastError();
 }
 
@@ -462,15 +487,18 @@ extern "C" {
 // Every entry point exists for f32 and f64 compute (TAG) with the stack
 // stored in the compute type (ps_<name>[_k<K>]_<TAG>) or in bf16
 // (ps_<name>[_k<K>]_<TAG>_bf16, coeff_bf16); the moment modes for each
-// basis: _k10_ (quadratic) and _k4_ (affine).
+// basis: _k10_ (quadratic) and _k4_ (affine).  moments, apply_reduced and
+// apply_uniform take hx, the x-halo of their inputs (0, or HALO_X in the
+// halo forms); nx is the slab's, without it.
 #define PS_MOMENT_MODES(K, TAG, T, C) \
   int ps_grid_mom_pap_k##K##_##TAG(const T* x, const C* c, T* out, T* mom, T* partials, int nx, int ny, int nz, int tile, \
                                    int by, int bz, cudaStream_t s) { \
-    return ps::plane_window<T, ps::WINDOW_GRID_MOM, K, C>(x, c, nullptr, out, mom, partials, nx, ny, nz, tile, by, bz, s); \
+    return ps::plane_window<T, ps::WINDOW_GRID_MOM, K, C>(x, c, nullptr, out, mom, partials, nx, ny, nz, tile, by, bz, 0, \
+                                                          s); \
   } \
-  int ps_moments_k##K##_##TAG(const T* x, const C* c, T* mom, int nx, int ny, int nz, int tile, int by, int bz, \
+  int ps_moments_k##K##_##TAG(const T* x, const C* c, T* mom, int nx, int ny, int nz, int tile, int by, int bz, int hx, \
                               cudaStream_t s) { \
-    return ps::plane_window<T, ps::WINDOW_MOM, K, C>(x, c, nullptr, nullptr, mom, nullptr, nx, ny, nz, tile, by, bz, s); \
+    return ps::plane_window<T, ps::WINDOW_MOM, K, C>(x, c, nullptr, nullptr, mom, nullptr, nx, ny, nz, tile, by, bz, hx, s); \
   }
 #define PS_WINDOW_FORMS(TAG, T, C) \
   PS_MOMENT_MODES(10, TAG, T, C) \
@@ -479,18 +507,19 @@ extern "C" {
     return ps::finish(c, out_grid, u, out, nx, ny, nz, s); \
   } \
   int ps_apply_reduced_##TAG(const T* x, const C* c, const T* u, T* out, int nx, int ny, int nz, int by, int bz, int run, \
-                             cudaStream_t s) { \
+                             int hx, cudaStream_t s) { \
     return ps::plane_window<T, ps::WINDOW_REDUCED, ps::K_QUADRATIC, C>(x, c, u, out, nullptr, nullptr, nx, ny, nz, run, by, \
-                                                                      bz, s); \
+                                                                      bz, hx, s); \
   } \
-  int ps_apply_uniform_##TAG(const T* x, const C* c, T* out, int nx, int ny, int nz, int by, int bz, int run, cudaStream_t s) { \
+  int ps_apply_uniform_##TAG(const T* x, const C* c, T* out, int nx, int ny, int nz, int by, int bz, int run, int hx, \
+                             cudaStream_t s) { \
     return ps::plane_window<T, ps::WINDOW_UNIFORM, ps::K_QUADRATIC, C>(x, c, nullptr, out, nullptr, nullptr, nx, ny, nz, run, \
-                                                                      by, bz, s); \
+                                                                      by, bz, hx, s); \
   } \
   int ps_apply_uniform_pap_##TAG(const T* x, const C* c, T* out, T* partials, int nx, int ny, int nz, int by, int bz, \
                                  int run, cudaStream_t s) { \
     return ps::plane_window<T, ps::WINDOW_UNIFORM_PAP, ps::K_QUADRATIC, C>(x, c, nullptr, out, nullptr, partials, nx, ny, \
-                                                                          nz, run, by, bz, s); \
+                                                                          nz, run, by, bz, 0, s); \
   } \
   int ps_grid_mom_pap_blocks_per_sm_##TAG(int by, int bz) { \
     return ps::window_blocks_per_sm<T, ps::WINDOW_GRID_MOM, C>(by, bz); \

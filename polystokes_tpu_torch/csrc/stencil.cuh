@@ -24,6 +24,15 @@
 // kernels pad on x and y and the zero fill of their z shifts
 // (polystokes_tpu/pallas_apply.py _pad_halo, _shift_z), so no padded
 // copy of any array is made here.
+//
+// The x-halo (HaloDims::hx, the halo forms of the plane-window kernels): an
+// x-slab of a sharded apply (polystokes_tpu_torch/parallel/shard_apply.py)
+// carries hx = HALO_X planes on each side, copied from the neighbouring
+// slabs (zero at the domain's ends), as the TPU kernels' prepadded forms
+// do.  Its inputs are [C, nx + 2 hx, ny, nz]; the kernel is given pointers
+// to their plane hx, so a slot's index is the same expression as without a
+// halo, and the planes -hx .. -1 and nx .. nx + hx - 1 read the halo.  The
+// outputs cover the nx planes of the slab, at channel stride cells().
 #pragma once
 
 #include <cuda_bf16.h>
@@ -82,6 +91,23 @@ struct Dims {
   __device__ __forceinline__ long long at(int i, int j, int k) const {
     return ((long long)i * ny + j) * nz + k;
   }
+};
+
+// The dims of a plane-window kernel's inputs, with their x-halo: plane is
+// their channel stride (nx + 2 hx) * ny * nz, and at() a slot's offset from
+// plane 0 of the slab, past the halo.  The kernel passes them on to the
+// device functions that read a Dims through plane and at() alone
+// (w_from_s_u, grid_w_from_s, transpose_contrib, sub_mass_terms); the
+// other kernels keep Dims, whose inside() has no halo.
+struct HaloDims : Dims {
+  int hx;  // x-halo planes on each side of the inputs: 0 but in the halo forms
+
+  // an input slot: x in [-hx, nx + hx), the halo included
+  __device__ __forceinline__ bool inside(int i, int j, int k) const {
+    return i >= -hx && j >= 0 && k >= 0 && i < nx + hx && j < ny && k < nz;
+  }
+  // nx * ny * nz, the channel stride of the outputs, which have no halo
+  __device__ __forceinline__ long long cells() const { return (long long)nx * ny * nz; }
 };
 
 // g_a = clw * (p - tau_aa) at (i, j, k)
@@ -335,6 +361,12 @@ struct alignas(sizeof(T) * N) Vec {
 };
 
 inline Dims dims(int nx, int ny, int nz) { return Dims{nx, ny, nz, (long long)nx * ny * nz}; }
+
+inline HaloDims halo_dims(int nx, int ny, int nz, int hx) {
+  HaloDims d;
+  d.nx = nx, d.ny = ny, d.nz = nz, d.plane = (long long)(nx + 2 * hx) * ny * nz, d.hx = hx;
+  return d;
+}
 
 inline unsigned blocks_for(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 

@@ -59,9 +59,20 @@ per-cube arrays, K = 10 monomials for the quadratic basis and 4 for the
 affine one; each has a CUDA form for each K.  Every kernel that reads the
 stack has a form for each storage type, picked by the stack's dtype.
 
+The halo forms: ``moments_packed``, ``apply_reduced_packed`` and
+``apply_uniform_packed`` take ``halo`` (0, or ``HALO_X``), the x-planes
+that each input carries on either side of an x-slab of the sharded apply
+(``parallel/shard_apply.py``; the JAX package's ``prepadded`` and
+``up_prepadded`` forms): the inputs are [C, nx + 2 halo, ny, nz], the
+output covers the slab's nx planes, and the halo planes are read where the
+forms without one read zeros.  Their twins compute on the padded slab and
+keep its interior; every twin's sums are taken per cube plane along x, so
+that a slab's outputs are the whole array's bit for bit.
+
 ``LAUNCHES`` counts the kernel launches of each wrapper, either basis
-under one name, the bfloat16-storage forms under the name with ``_bf16``
-appended; under a CUDA graph, ``captured_launches`` and ``add_launches``
+under one name, the halo forms under the name with ``_halo`` appended, the
+bfloat16-storage forms under the name with ``_bf16`` appended (after
+``_halo``); under a CUDA graph, ``captured_launches`` and ``add_launches``
 count each replay's.
 """
 from __future__ import annotations
@@ -94,12 +105,16 @@ N_COEFF = 17
 N_COEFF_UNIFORM = 14  # without the reduced-face masks
 PAP_BLOCK = 256  # slots per dot partial of the update kernels (their thread block)
 KERNEL_THREADS = 256  # most threads in a block of any kernel (csrc/stencil.cuh kThreads)
+HALO_X = 2  # x-planes an x-slab carries on each side (polystokes_tpu/pallas_apply.py HALO_X)
 
 KERNEL_NAMES = ("moments", "expand", "apply_reduced", "grid_mom_pap", "finish", "apply_uniform", "apply_uniform_pap",
                 "transpose_u", "forward_s", "combine", "cg_update", "finish_update", "exp_finish_update")
+# the kernels with a halo form, counted as <name>_halo
+HALO_KERNELS = ("moments", "apply_reduced", "apply_uniform")
 # the kernels that read no coefficient stack, so have no bfloat16-storage form
 _STACKLESS_KERNELS = ("cg_update",)
-LAUNCHES = {name: 0 for name in KERNEL_NAMES + tuple(f"{k}_bf16" for k in KERNEL_NAMES if k not in _STACKLESS_KERNELS)}
+_FORMS = KERNEL_NAMES + tuple(f"{k}_halo" for k in HALO_KERNELS)
+LAUNCHES = {name: 0 for name in _FORMS + tuple(f"{k}_bf16" for k in _FORMS if k not in _STACKLESS_KERNELS)}
 
 # channels of the CELL_ARROW factor stack (pack_arrow_factors), as in the
 # JAX package's pallas_apply
@@ -258,21 +273,30 @@ def _grid_w(c, s):
 
 def _local_monomials(T: int, a: int, like, basis: BasisOrder):
     """[K, T, T, T] monomials of the basis at cube-local face positions
-    (+0.5 on axis a)."""
-    loc = torch.arange(T, dtype=like.dtype, device=like.device)
+    (+0.5 on axis a), made once for each tile, axis, dtype and device."""
+    return _monomials_at(T, a, like.dtype, like.device, basis)
+
+
+@functools.lru_cache(maxsize=64)
+def _monomials_at(T: int, a: int, dtype, device, basis: BasisOrder):
+    loc = torch.arange(T, dtype=dtype, device=device)
     pos = [loc[:, None, None], loc[None, :, None], loc[None, None, :]]
     pos[a] = pos[a] + 0.5
     return torch.stack([m.expand(T, T, T) for m in monomials_xyz(*pos, basis)], dim=0)
 
 
 def _moments_from_s(s, coeffs, T: int, basis: BasisOrder):
-    """[cs0, cs1, 3K, cs2] cube-origin moments of the reduced-masked s."""
+    """[cs0, cs1, 3K, cs2] cube-origin moments of the reduced-masked s.  Each
+    plane of cubes along x is a contraction of its own, so a cube's sums do
+    not depend on the array's x-extent (an x-slab's moments are the whole
+    array's bit for bit)."""
     nx, ny, nz = s[0].shape
     coeffs = coeffs.to(s[0].dtype)
     rows = []
     for a in range(3):
         sm = (s[a] * coeffs[C_RED + a]).reshape(nx // T, T, ny // T, T, nz // T, T)
-        rows.append(torch.einsum("aibjck,mijk->abmc", sm, _local_monomials(T, a, s[a], basis)))
+        mono = _local_monomials(T, a, s[a], basis)
+        rows.append(torch.stack([torch.einsum("ibjck,mijk->bmc", plane, mono) for plane in sm]))
     return torch.cat(rows, dim=2)
 
 
@@ -286,30 +310,41 @@ def _box_sums(field, box):
     return f.reshape(nx // bx, bx, ny // by, by, nz // bz, bz).sum(dim=(1, 3, 5)).reshape(-1)
 
 
-def moments_packed_plain(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
+def _interior(t, halo: int, dim: int = 1):
+    """The slab's planes of a tensor with ``halo`` x-planes on each side
+    (x along ``dim``): t itself without a halo."""
+    return t if not halo else t.narrow(dim, halo, t.shape[dim] - 2 * halo)
+
+
+def moments_packed_plain(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC, halo: int = 0):
     """Per-cube monomial moments about the cube origin of the reduced-
-    masked s: [cs0, cs1, 3K, cs2], K the basis's monomials."""
-    return _moments_from_s(_forward_s(xp, coeffs), coeffs, T, basis)
+    masked s: [cs0, cs1, 3K, cs2], K the basis's monomials.  With ``halo``,
+    the slab's: s on the padded slab, the moments of its interior."""
+    s = [_interior(sa, halo, 0) for sa in _forward_s(xp, coeffs)]
+    return _moments_from_s(s, _interior(coeffs, halo), T, basis)
 
 
 def expand_packed_plain(v_origin, red_packed, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
-    """u_a = chi_a sum_k v[cube, aK+k] m_k(p - origin): [3, nx, ny, nz]."""
+    """u_a = chi_a sum_k v[cube, aK+k] m_k(p - origin): [3, nx, ny, nz], each
+    plane of cubes along x a contraction of its own (as in the moments)."""
     cs0, cs1, _, cs2 = v_origin.shape
     K = n_monomials(basis)
     red_packed = red_packed.to(v_origin.dtype)
     out = []
     for a in range(3):
         va = v_origin[:, :, a * K : (a + 1) * K, :]
-        u = torch.einsum("abmc,mijk->aibjck", va, _local_monomials(T, a, v_origin, basis))
+        mono = _local_monomials(T, a, v_origin, basis)
+        u = torch.stack([torch.einsum("bmc,mijk->ibjck", plane, mono) for plane in va])
         out.append(u.reshape(cs0 * T, cs1 * T, cs2 * T) * red_packed[a])
     return torch.stack(out, dim=0)
 
 
-def apply_reduced_packed_plain(xp, coeffs, up):
-    """The reduced A x given the expanded u: [7, nx, ny, nz]."""
+def apply_reduced_packed_plain(xp, coeffs, up, halo: int = 0):
+    """The reduced A x given the expanded u: [7, nx, ny, nz]; with ``halo``,
+    on the padded slab (u padded too), its interior."""
     s = _forward_s(xp, coeffs)
     w = [wg - up[a] for a, wg in enumerate(_grid_w(coeffs, s))]
-    return _transpose_out(xp, coeffs, w)
+    return _interior(_transpose_out(xp, coeffs, w), halo).contiguous()
 
 
 def grid_mom_pap_packed_plain(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
@@ -326,9 +361,10 @@ def finish_packed_plain(coeffs, out_grid, up):
     return out_grid + _transpose_contrib(coeffs, [-up[a] for a in range(3)])
 
 
-def apply_uniform_packed_plain(xp, coeffs):
-    """The uniform A x: [7, nx, ny, nz]."""
-    return _transpose_out(xp, coeffs, _grid_w(coeffs, _forward_s(xp, coeffs)))
+def apply_uniform_packed_plain(xp, coeffs, halo: int = 0):
+    """The uniform A x: [7, nx, ny, nz]; with ``halo``, on the padded slab,
+    its interior."""
+    return _interior(_transpose_out(xp, coeffs, _grid_w(coeffs, _forward_s(xp, coeffs))), halo).contiguous()
 
 
 def transpose_u_packed_plain(coeffs, up):
@@ -417,8 +453,8 @@ _WINDOW_KERNELS = {"grid_mom_pap": 0, "apply_uniform": 1, "apply_uniform_pap": 2
 # the stack stored in bfloat16: ps_<name>[_k<K>]_<f32|f64>_bf16
 _BASIS_KERNELS = ("moments", "expand", "grid_mom_pap", "exp_finish_update")
 STORAGE_DTYPES = (torch.bfloat16,)  # stack storage besides the compute dtype
-_SIGNATURES = (("moments", 3, 6), ("expand", 3, 7), ("apply_reduced", 4, 6), ("grid_mom_pap", 5, 6),
-               ("finish", 4, 3), ("apply_uniform", 3, 6), ("apply_uniform_pap", 4, 6), ("transpose_u", 3, 3),
+_SIGNATURES = (("moments", 3, 7), ("expand", 3, 7), ("apply_reduced", 4, 7), ("grid_mom_pap", 5, 6),
+               ("finish", 4, 3), ("apply_uniform", 3, 7), ("apply_uniform_pap", 4, 6), ("transpose_u", 3, 3),
                ("forward_s", 3, 3), ("combine", 5, 3), ("cg_update", 10, 4), ("finish_update", 12, 4),
                ("exp_finish_update", 12, 5))
 
@@ -509,11 +545,12 @@ def _entry(name: str, dt: str, basis=None, bf16: bool = False) -> str:
     return entry + ("_bf16" if bf16 else "")
 
 
-def _launch(name: str, tensors, ints, dtype, basis=None, stored=None):
+def _launch(name: str, tensors, ints, dtype, basis=None, stored=None, halo: int = 0):
     """Launch one kernel, the entry point of ``basis`` where the kernel
     reads it and of the dtype of its ``stored`` stack (or masks) where it
     reads one; a tensor given as None is a null pointer (the factors of the
-    update kernels' kind "none")."""
+    update kernels' kind "none").  ``halo`` (passed in ``ints`` too) counts
+    the launch under the halo form's name."""
     bf16 = stored is not None and stored.dtype == torch.bfloat16
     fn = getattr(_library(), _entry(name, "f32" if dtype == torch.float32 else "f64", basis, bf16))
     device = tensors[0].device
@@ -522,7 +559,7 @@ def _launch(name: str, tensors, ints, dtype, basis=None, stored=None):
                  torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name + ("_bf16" if bf16 else "")] += 1
+    LAUNCHES[name + ("_halo" if halo else "") + ("_bf16" if bf16 else "")] += 1
 
 
 def _check(name, tensors, shapes, stored=()):
@@ -548,6 +585,21 @@ def _check(name, tensors, shapes, stored=()):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev.type
+
+
+def _slab_res(name, t, halo: int):
+    """(nx, ny, nz) of the slab a [C, nx + 2 halo, ny, nz] input holds; halo
+    is 0 or HALO_X."""
+    if halo not in (0, HALO_X):
+        raise ValueError(f"{name}: halo must be 0 or {HALO_X}, got {halo}")
+    if t.dim() != 4 or t.shape[1] <= 2 * halo:
+        raise ValueError(f"{name}: expected [C, nx + {2 * halo}, ny, nz] with nx >= 1, got {tuple(t.shape)}")
+    return (t.shape[1] - 2 * halo,) + tuple(t.shape[2:])
+
+
+def _padded(res, halo: int):
+    """The input shape of a slab of resolution res with ``halo`` planes on each side."""
+    return (res[0] + 2 * halo,) + tuple(res[1:])
 
 
 def _cube_dims(res, T):
@@ -629,27 +681,29 @@ def _cube_parts(T: int, by: int, bz: int):
     return (parts,) if parts > 1 else ()
 
 
-def moments_packed(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC):
+def moments_packed(xp, coeffs, T: int, basis: BasisOrder = BasisOrder.QUADRATIC, halo: int = 0):
     """[cs0, cs1, 3K, cs2] per-cube moments of the reduced-masked s over
-    the K monomials of ``basis``."""
-    res = tuple(xp.shape[1:])
+    the K monomials of ``basis``; with ``halo`` those of an x-slab whose x
+    and stack carry ``halo`` planes on each side."""
+    res = _slab_res("moments_packed", xp, halo)
     _cube_dims(res, T)
-    dev = _check("moments_packed", (xp, coeffs), ((7,) + res, (N_COEFF,) + res), stored=(1,))
+    shape = _padded(res, halo)
+    dev = _check("moments_packed", (xp, coeffs), ((7,) + shape, (N_COEFF,) + shape), stored=(1,))
     if dev == "cpu":
-        return moments_packed_plain(xp, coeffs, T, basis)
-    return _moments_cuda(xp, coeffs, T, *grid_mom_plan(T), basis=basis)
+        return moments_packed_plain(xp, coeffs, T, basis, halo)
+    return _moments_cuda(xp, coeffs, T, *grid_mom_plan(T), basis=basis, halo=halo)
 
 
-def _moments_cuda(xp, coeffs, T: int, by: int, bz: int, basis: BasisOrder = BasisOrder.QUADRATIC):
+def _moments_cuda(xp, coeffs, T: int, by: int, bz: int, basis: BasisOrder = BasisOrder.QUADRATIC, halo: int = 0):
     """moments_packed's kernel at the column geometry (by, bz), on
     grid_mom_pap's columns: each of a cube's (T / by) * (T / bz) blocks
     writes its own moments, summed here over dim 0 as _grid_mom_pap_cuda
     sums them, so the two agree bit for bit at one column."""
-    res = tuple(xp.shape[1:])
+    res = _slab_res("moments_packed", xp, halo)
     cs = _cube_dims(res, T)
     lead = _cube_parts(T, by, bz)
     mom = torch.empty(lead + (cs[0], cs[1], 3 * n_monomials(basis), cs[2]), dtype=xp.dtype, device=xp.device)
-    _launch("moments", (xp, coeffs, mom), (*res, T, by, bz), xp.dtype, basis, coeffs)
+    _launch("moments", (xp, coeffs, mom), (*res, T, by, bz, halo), xp.dtype, basis, coeffs, halo)
     return mom.sum(dim=0) if lead else mom
 
 
@@ -669,20 +723,25 @@ def expand_packed(v_origin, red_packed, T: int, basis: BasisOrder = BasisOrder.Q
     return u
 
 
-def apply_reduced_packed(xp, coeffs, up):
-    """[7, nx, ny, nz] = the reduced A x given the expanded u."""
-    res = tuple(xp.shape[1:])
-    dev = _check("apply_reduced_packed", (xp, coeffs, up), ((7,) + res, (N_COEFF,) + res, (3,) + res), stored=(1,))
+def apply_reduced_packed(xp, coeffs, up, halo: int = 0):
+    """[7, nx, ny, nz] = the reduced A x given the expanded u; with ``halo``
+    that of an x-slab whose x, stack and u carry ``halo`` planes on each
+    side."""
+    res = _slab_res("apply_reduced_packed", xp, halo)
+    shape = _padded(res, halo)
+    dev = _check("apply_reduced_packed", (xp, coeffs, up), ((7,) + shape, (N_COEFF,) + shape, (3,) + shape),
+                 stored=(1,))
     if dev == "cpu":
-        return apply_reduced_packed_plain(xp, coeffs, up)
-    return _apply_reduced_cuda(xp, coeffs, up, *uniform_plan(res))
+        return apply_reduced_packed_plain(xp, coeffs, up, halo)
+    return _apply_reduced_cuda(xp, coeffs, up, *uniform_plan(res), halo=halo)
 
 
-def _apply_reduced_cuda(xp, coeffs, up, by: int, bz: int, run: int):
+def _apply_reduced_cuda(xp, coeffs, up, by: int, bz: int, run: int, halo: int = 0):
     """The reduced apply kernel at the geometry (by, bz, run): by x bz
     columns over runs of `run` planes, as the uniform apply's."""
-    out = torch.empty_like(xp)
-    _launch("apply_reduced", (xp, coeffs, up, out), (*xp.shape[1:], by, bz, run), xp.dtype, stored=coeffs)
+    res = _slab_res("apply_reduced_packed", xp, halo)
+    out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
+    _launch("apply_reduced", (xp, coeffs, up, out), (*res, by, bz, run, halo), xp.dtype, stored=coeffs, halo=halo)
     return out
 
 
@@ -736,14 +795,16 @@ def _coeff_channels(name, coeffs):
     return n
 
 
-def apply_uniform_packed(xp, coeffs):
-    """[7, nx, ny, nz] = the uniform A x."""
-    res = tuple(xp.shape[1:])
+def apply_uniform_packed(xp, coeffs, halo: int = 0):
+    """[7, nx, ny, nz] = the uniform A x; with ``halo`` that of an x-slab
+    whose x and stack carry ``halo`` planes on each side."""
+    res = _slab_res("apply_uniform_packed", xp, halo)
+    shape = _padded(res, halo)
     n = _coeff_channels("apply_uniform_packed", coeffs)
-    dev = _check("apply_uniform_packed", (xp, coeffs), ((7,) + res, (n,) + res), stored=(1,))
+    dev = _check("apply_uniform_packed", (xp, coeffs), ((7,) + shape, (n,) + shape), stored=(1,))
     if dev == "cpu":
-        return apply_uniform_packed_plain(xp, coeffs)
-    return _apply_uniform_cuda(xp, coeffs, *uniform_plan(res), pap=False)
+        return apply_uniform_packed_plain(xp, coeffs, halo)
+    return _apply_uniform_cuda(xp, coeffs, *uniform_plan(res), pap=False, halo=halo)
 
 
 def apply_uniform_pap_packed(xp, coeffs):
@@ -757,14 +818,16 @@ def apply_uniform_pap_packed(xp, coeffs):
     return _apply_uniform_cuda(xp, coeffs, *uniform_plan(res), pap=True)
 
 
-def _apply_uniform_cuda(xp, coeffs, by: int, bz: int, run: int, pap: bool):
+def _apply_uniform_cuda(xp, coeffs, by: int, bz: int, run: int, pap: bool, halo: int = 0):
     """The uniform apply kernel at the geometry (by, bz, run): A x, and with
     pap also its partials, one per block in (run, y column, z column)
-    order."""
-    res = tuple(xp.shape[1:])
+    order (pap has no halo form)."""
+    if pap and halo:
+        raise ValueError("apply_uniform_pap_packed has no halo form")
+    res = _slab_res("apply_uniform_packed", xp, halo)
     out = torch.empty((7,) + res, dtype=xp.dtype, device=xp.device)
     if not pap:
-        _launch("apply_uniform", (xp, coeffs, out), (*res, by, bz, run), xp.dtype, stored=coeffs)
+        _launch("apply_uniform", (xp, coeffs, out), (*res, by, bz, run, halo), xp.dtype, stored=coeffs, halo=halo)
         return out
     blocks = -(-res[0] // run) * -(-res[1] // by) * -(-res[2] // bz)
     partials = torch.empty((blocks,), dtype=xp.dtype, device=xp.device)

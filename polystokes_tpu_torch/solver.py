@@ -253,21 +253,28 @@ def assemble(grid: Grid, scene: Scene, cls: Classification, liquid_w, fluid_w, p
 
 def _use_packed(grid: Grid, params: SolverParams) -> bool:
     """Whether the step runs the packed kernels: ``use_pallas``, not
-    MULTIGRID, and a configuration the packed layout takes, as in the JAX
-    package (``pallas_compatible``): tiled with padding slabs, or untiled
-    with cube regions, and a tile that divides every resolution; the
-    uniform step always.  The TPU's block rule (x and y divisible by its
-    block) is not the port's, so a resolution that only that rule refuses
-    runs packed here and unpacked in JAX."""
+    MULTIGRID, and a configuration the packed layout takes
+    (``_packed_layout``)."""
     if not params.use_pallas or params.preconditioner == PreconditionerType.MULTIGRID:
         return False
+    return _packed_layout(grid.res, params)
+
+
+def _packed_layout(res, params: SolverParams) -> bool:
+    """Whether the packed layout takes the resolution ``res`` (the grid's,
+    or an x-slab's), as in the JAX package (``pallas_compatible``): tiled
+    with padding slabs, or untiled with cube regions, and a tile that
+    divides every resolution; the uniform step always.  The TPU's block
+    rule (x and y divisible by its block) is not the port's, so a
+    resolution that only that rule refuses runs packed here and unpacked in
+    JAX."""
     if not params.do_reduced_regions:
         return True
     if params.do_tile and params.tile_padding < 1:
         return False
     if not params.do_tile and not params.cube_regions:
         return False
-    return all(n % params.tile_size == 0 for n in grid.res)
+    return all(n % params.tile_size == 0 for n in res)
 
 
 def make_apply(grid: Grid, cls: Classification, asm: Assembled, params: SolverParams, R: int):
@@ -580,13 +587,18 @@ def _make_deflation(grid: Grid, cls: Classification, asm: Assembled, params: Sol
 
 
 def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParams, initial_guess=None, pfac=None,
-                         defl=None):
-    """(apply_K, apply_dot, fused_update, precond, b_K, x0_K): the
-    unsharded branches of the JAX package's ``_build_krylov_system``.
-    Packed (``_use_packed``), the vectors are [7, nx, ny, nz] tensors,
-    ``apply_dot`` the fused apply with <p, A p> under ``fuse_pap``, else
-    None, and ``fused_update`` the fused CG update under ``fuse_update``
-    with a pointwise preconditioner, else None.  Unpacked, the vectors are
+                         defl=None, mesh=None, mesh_axis: str = "x"):
+    """(apply_K, apply_dot, fused_update, precond, b_K, x0_K), as the JAX
+    package's ``_build_krylov_system``.  Packed (``_use_packed``), the
+    vectors are [7, nx, ny, nz] tensors, ``apply_dot`` the fused apply with
+    <p, A p> under ``fuse_pap``, else None, and ``fused_update`` the fused
+    CG update under ``fuse_update`` with a pointwise preconditioner, else
+    None.  ``mesh`` (a ``parallel.sharding.Mesh`` of more than one device
+    whose only axis above 1 is ``mesh_axis``, the caller having checked
+    ``pallas_shardable``) takes the packed apply through the x-slab kernels
+    of ``parallel.shard_apply``; the fused apply and update are then None,
+    as in JAX, and the vectors stay whole on the mesh's first device.
+    Unpacked, the vectors are
     flat (``operators.ravel_ptau``), the apply and the preconditioner are
     ``make_apply`` and ``precond.make_preconditioner`` on them, and both
     fused forms are None.  ``initial_guess`` (a PTau) seeds the solve;
@@ -608,12 +620,18 @@ def _build_krylov_system(grid: Grid, cls, asm, scene: Scene, params: SolverParam
             precond_p = deflated_precond_ptau(defl, apply_p, base=precond_p)
         return _flat(apply_p, grid), None, None, _flat(precond_p, grid), b_K, x0_K
     b_K = pack_ptau(b)
-    apply_K = make_apply_packed(grid, cls, asm, params, R)
     if pfac is None:
         pfac = precond_factors_packed(grid, cls, asm, params)
-    fused_update = make_fused_update(params, pfac, cls, asm)
-    apply_dot = (make_apply_packed_pap(grid, cls, asm, params, R, defer_finish=_defer_finish(params, fused_update))
-                 if params.fuse_pap else None)
+    if mesh is not None and mesh.size > 1:
+        from .parallel.shard_apply import make_apply_packed_sharded
+
+        apply_K = make_apply_packed_sharded(grid, cls, asm, params, R, mesh, axis=mesh_axis)
+        fused_update = apply_dot = None  # single-device kernels: the slab path runs the unfused apply
+    else:
+        apply_K = make_apply_packed(grid, cls, asm, params, R)
+        fused_update = make_fused_update(params, pfac, cls, asm)
+        apply_dot = (make_apply_packed_pap(grid, cls, asm, params, R, defer_finish=_defer_finish(params, fused_update))
+                     if params.fuse_pap else None)
     precond = make_preconditioner_packed(grid, cls, asm, params, pfac)
     x0_K = torch.zeros_like(b_K) if initial_guess is None else pack_ptau(initial_guess).to(b_K.dtype)
     if defl is not None:
@@ -754,15 +772,18 @@ def _write_back(grid: Grid, scene: Scene, params: SolverParams, cls: Classificat
     return new_vel, valid, stats
 
 
-def _chunk_init(grid: Grid, scene: Scene, params: SolverParams, cls, asm, initial_guess=None, pfac=None, defl=None):
+def _chunk_init(grid: Grid, scene: Scene, params: SolverParams, cls, asm, initial_guess=None, pfac=None, defl=None,
+                mesh=None, mesh_axis: str = "x"):
     """(carry, loop): the initial PCG carry and the ``krylov.PCGLoop`` that
     holds the Krylov system, whose CUDA graph every segment replays (JAX's
     ``_chunk_init`` returns the carry and rebuilds the system inside each
-    jitted segment, each with the deflated preconditioner of ``defl``)."""
+    jitted segment, each with the deflated preconditioner of ``defl`` and
+    the sharded apply of ``mesh``)."""
     apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params,
-                                                                                 initial_guess, pfac, defl)
+                                                                                 initial_guess, pfac, defl, mesh,
+                                                                                 mesh_axis)
     loop = krylov.PCGLoop(apply_K, precond, tol=params.tolerance, max_iters=params.max_iterations, apply_dot=apply_dot,
-                          fused_update=fused_update)
+                          fused_update=fused_update, graph=_slab_graph(mesh, mesh_axis))
     return krylov.pcg_init(apply_K, b_K, x0_K, precond), loop
 
 
@@ -816,11 +837,58 @@ def _fallback(apply_K, b_K, pcg_res: krylov.KrylovResult, fb: krylov.KrylovResul
     return res, "bicgstab" if keep else "pcg"
 
 
-def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
+def _slab_graph(mesh, mesh_axis: str):
+    """``krylov.PCGLoop``'s ``graph`` for a solve whose apply runs as
+    x-slabs over ``mesh`` (None: unsharded): None, a graph where the
+    vectors are on CUDA, when every slab of ``mesh_axis`` is on the mesh's
+    first device, where the vectors live; else False, an eager loop, since
+    a CUDA graph captures the launches of one device."""
+    if mesh is None or all(d == mesh.devices[0] for d in mesh.axis_devices(mesh_axis)):
+        return None
+    return False
+
+
+def _mesh_gate(grid: Grid, scene: Scene, params: SolverParams, mesh):
+    """(scene, params, sharded) of a solve on ``mesh`` (None: no mesh).  The
+    scene moves to the mesh's first device, where the setup and the Krylov
+    vectors live.  A solve that ``parallel.sharding.pallas_shardable``
+    admits keeps its params and runs the x-slab apply (sharded True); any
+    other on a mesh of more than one device warns and runs the unpacked
+    step whole on the first device (``check_mesh_pallas``; the JAX package
+    hands it to GSPMD's partitioned apply, which the port does not have:
+    ROADMAP.md Queue 3, divergence 8)."""
+    if mesh is None:
+        return scene, params, False
+    from .parallel.sharding import check_mesh_pallas, shard_scene
+
+    scene = shard_scene(scene, mesh)
+    if mesh.size <= 1:
+        return scene, params, False
+    if params.use_pallas:
+        gated = check_mesh_pallas(params, mesh, grid)
+        return scene, gated, gated.use_pallas
+    warnings.warn(
+        f"the unpacked apply (use_pallas=False) has no x-slab form: the solve runs whole on the first device "
+        f"of the {mesh.size}-device mesh",
+        stacklevel=3,
+    )
+    return scene, params, False
+
+
+def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None, mesh=None, mesh_axis: str = "x"):
     """One Stokes solve.  Returns (new_velocity, valid_masks, stats).
     ``initial_guess`` (optional PTau) seeds the Krylov solve, as in the JAX
     package.  The layout is ``_use_packed``'s: the packed kernels, or the
     unpacked apply, which launches none.
+
+    ``mesh`` (a ``parallel.sharding.Mesh``) and ``mesh_axis`` run the
+    packed apply as x-slabs over the mesh's devices, one slab a device
+    (``parallel.shard_apply``: the halo forms of kernels 1 and 3, or 7, and
+    kernel 2 on each slab), where ``pallas_shardable`` admits the solve;
+    the Krylov vectors stay whole on the mesh's first device.  Any other
+    solve on the mesh warns and runs unpacked on that device
+    (``_mesh_gate``).  ``stats["sharded"]`` says whether the slab apply ran.
+    ``parallel.sharding.sharded_step`` picks the axis.
 
     ``solver_type`` picks the solver as in the JAX package: preconditioned
     CG, then with ``bicgstab_fallback`` BiCGStab from the same x0 when CG
@@ -834,17 +902,19 @@ def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
     sum of both solves'.  Under ``deflation`` the A-DEF2 state is built
     after the setup (``_make_deflation``) and the solves start from the
     projected guess."""
+    scene, params, sharded = _mesh_gate(grid, scene, params, mesh)
+    mesh = mesh if sharded else None
     cls, asm = _setup(grid, scene, params)
     defl = _make_deflation(grid, cls, asm, params)
-    apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(grid, cls, asm, scene, params,
-                                                                                 initial_guess, defl=defl)
+    apply_K, apply_dot, fused_update, precond, b_K, x0_K = _build_krylov_system(
+        grid, cls, asm, scene, params, initial_guess, defl=defl, mesh=mesh, mesh_axis=mesh_axis)
     capture, kept = 0.0, None
     tol, max_iters = params.tolerance, params.max_iterations
     if not params.do_solve:
         res = krylov.KrylovResult(x=x0_K, iterations=0, error=0.0, converged=True, applies=0, passes=0)
     elif params.solver_type == SolverType.PCG_MATRIX_VECTOR_PRODUCTS:
         loop = krylov.PCGLoop(apply_K, precond, tol=tol, max_iters=max_iters, apply_dot=apply_dot,
-                              fused_update=fused_update)
+                              fused_update=fused_update, graph=_slab_graph(mesh, mesh_axis))
         res = krylov.pcg_result(loop.segment(krylov.pcg_init(apply_K, b_K, x0_K, precond)), loop.passes)
         capture = loop.capture_seconds or 0.0  # the CUDA graphs' capture, 0 where none
         del loop  # its buffers and graphs, before a fallback allocates its own
@@ -857,15 +927,17 @@ def step(grid: Grid, scene: Scene, params: SolverParams, initial_guess=None):
     new_vel, valid, stats = _write_back(grid, scene, params, cls, asm, res)
     stats["capture_seconds"] = capture
     stats["fallback_kept"] = kept
+    stats["sharded"] = sharded
     return new_vel, valid, stats
 
 
 def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters: int = 500, max_seconds: float = None,
-                  callback=None, state_path: str = None, resume: bool = False, initial_guess=None):
+                  callback=None, state_path: str = None, resume: bool = False, initial_guess=None, mesh=None,
+                  mesh_axis: str = "x"):
     """One Stokes solve as a host loop over CG segments of at most
     ``segment_iters`` iterations, the Krylov state held on the device
-    between them, as the JAX package's ``solve_chunked`` (without its
-    ``mesh``).  It restores the reference's interrupt semantics (opInterrupt
+    between them, as the JAX package's ``solve_chunked``; ``mesh`` and
+    ``mesh_axis`` as in ``step``.  It restores the reference's interrupt semantics (opInterrupt
     polling, Classifier.cpp:73-74): Ctrl-C between segments returns the
     partial result under ``keep_non_converged``.
 
@@ -894,6 +966,7 @@ def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters:
             print(f"[solve_chunked +{dt:7.1f}s] {msg}", flush=True)
 
     t_start = time.monotonic()
+    scene, params, sharded = _mesh_gate(grid, scene, params, mesh)
     _v("setup...")
     cls, asm = _setup(grid, scene, params)
     _v("deflation build...")
@@ -903,7 +976,8 @@ def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters:
         _v("precond factors...")
         pfac = precond_factors_packed(grid, cls, asm, params)
     _v("chunk init...")
-    carry, loop = _chunk_init(grid, scene, params, cls, asm, initial_guess, pfac, defl)
+    carry, loop = _chunk_init(grid, scene, params, cls, asm, initial_guess, pfac, defl, mesh if sharded else None,
+                              mesh_axis)
     _v("first segment...")
     if resume and state_path and os.path.exists(state_path):
         with np.load(state_path) as d:
@@ -932,4 +1006,5 @@ def solve_chunked(grid: Grid, scene: Scene, params: SolverParams, segment_iters:
     new_vel, valid, stats = _chunk_finalize(grid, scene, params, cls, asm, carry, loop.passes)
     stats["interrupted"] = interrupted
     stats["capture_seconds"] = loop.capture_seconds or 0.0  # as step's
+    stats["sharded"] = sharded
     return new_vel, valid, stats
