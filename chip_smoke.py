@@ -245,6 +245,28 @@ Phases (any failed check exits non-zero before the final line):
      forms); a 2 x 2 mesh warns and runs unpacked with no launch;
      dryrun_multichip(8) on the card; with two cards or more, the apply
      and the step on a mesh of cuda:0 and cuda:1.
+ 28. the host surfaces (export, host_solve, viz) on the card's state, with
+     (d)'s processes started first and running beside (a)-(c): (a) the
+     explicit blocks (export.ExplicitOperators: G JG Dt JDt Mc McInv u
+     uInv Mr BInv B uRed uInvRed JDtRed) and vectors() from the card's
+     assembled state of honey_coil 32^3 (fp64, tile 8, CELL_ARROW) against
+     the CPU port's: identical sparsity, values within 1e-12 of max; (b) on
+     A's configuration (untiled, tile 16, f32) at 32^3, 64^3 and 128^3 (phase
+     2's system): the exported Schur operator on a seeded x in the DOF order
+     against the fused apply (kernels 4, 2, 5) and the unfused one (1, 2, 3),
+     within 1e-5 of max, <x, A x> within 1e-5; the Schur matrix itself at
+     32^3 only (its region blocks are dense: their size is printed at each
+     n), elsewhere its factored form (schur_operator); the seconds of
+     ExplicitOperators, schur_operator and export_component_matrices and the
+     peak RSS; (c) solve_explicit at tol 1e-10 on the 32^3 system of (a),
+     export_solution, solution_guess_ptau onto the card and step from it:
+     converged in fewer than max(cold // 4, 2) iterations with A's exact
+     launches (path A_warm), and the loaded guess through solve_explicit
+     with info 0; (d) the CLI: --solver eigen --fp64 at 32^3, with --scheme
+     all_dofs, pressure_velocity and all_dofs_explicit_interior_stress at
+     16^3, --export-prefix --viz --pallas at 64^3 and --export-mtx at 16^3:
+     exit 0, converged=True, the files, the "exported to" and "rendered"
+     lines; the phase's wall printed.
 Every packed phase checks that check_pallas's fallback did not fire
 (packed_preflight) and that the packed layout takes its configuration.
 Phase 2 also holds the tile-dependent kernels (moments, expand,
@@ -265,13 +287,16 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
+import numpy as np
 import torch
 
 N_MAIN = 128
@@ -936,6 +961,260 @@ def phase_24_host_cc(grid, scene, p_a, table):
         if n:
             table[name]["launches_by_path"]["A_host_cc"] = n
     return times
+
+
+# -- phase 28: the host surfaces (export, host_solve, viz) on the card's
+# assembled state
+P28_ATOL = 1e-12  # (a) card against CPU in fp64: each block's values and each vector, times its max
+APPLY_RTOL = 1e-5  # (b) the exported Schur operator against the kernels' applies in f32, times max |S x|
+N_EXPORT = 64  # (b)'s resolution: the CLI's default n
+BLOCKS_28 = ("G", "JG", "Dt", "JDt", "Mc", "McInv", "u", "uInv", "Mr", "BInv", "B", "uRed", "uInvRed", "JDtRed")
+EIGEN_SCHEMES = ("all_dofs", "pressure_velocity", "all_dofs_explicit_interior_stress")
+
+
+def peak_rss_gib() -> float:
+    """The process's peak resident set (ru_maxrss: KiB on Linux)."""
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def region_fill(ops) -> int:
+    """Sum over regions of (DOF columns their reduced rows touch)^2: the
+    entries that ExplicitOperators.schur_matrix's dense region blocks hold
+    (an upper bound of their union)."""
+    import scipy.sparse as sp
+
+    if not ops.R:
+        return 0
+    jgd = sp.hstack([ops.JG(), ops.JDt()]).tocoo()
+    touched = sp.csr_matrix((np.ones(jgd.nnz, np.int32), (jgd.row // ops.D, jgd.col)),
+                            shape=(ops.R, jgd.shape[1]))  # duplicates summed: one entry per column
+    counts = np.diff(touched.indptr).astype(np.int64)
+    return int(np.sum(counts * counts))
+
+
+def same_sparse(a, b):
+    """(identical sparsity after sum_duplicates and sorting, max |diff| over
+    max |a|) of two scipy sparse matrices."""
+    import scipy.sparse as sp
+
+    a, b = sp.csr_matrix(a), sp.csr_matrix(b)
+    for m in (a, b):
+        m.sum_duplicates()
+        m.sort_indices()
+    same = a.shape == b.shape and np.array_equal(a.indptr, b.indptr) and np.array_equal(a.indices, b.indices)
+    scale = float(np.abs(a.data).max()) if a.nnz else 0.0
+    rel = float(np.abs(a.data - b.data).max(initial=0.0)) / scale if same and scale else 0.0
+    return same, rel
+
+
+def phase_28_export(grid, scene, cls, asm, p_a, table):
+    """The host surfaces on the card: (d)'s CLI processes start first and
+    run beside (a)-(c); every check fails the run."""
+    from polystokes_tpu_torch import export as ex
+    from polystokes_tpu_torch import packed_apply as pa
+    from polystokes_tpu_torch import solver
+    from polystokes_tpu_torch.classify import effective_max_regions
+    from polystokes_tpu_torch.scenes.builders import honey_coil
+
+    t28 = time.perf_counter()
+    dev = scene.surface_sdf.device
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="phase28_")
+    print(f"phase 28 peak RSS before the phase: {peak_rss_gib():.2f} GiB", flush=True)
+
+    # (d) the CLI, each run a process of its own, started now
+    cli = [("eigen pressure_stress 32^3", ["--n", "32", "--fp64", "--solver", "eigen"], "scheme=pressure_stress", [])]
+    cli += [(f"eigen {sc} 16^3", ["--n", "16", "--fp64", "--solver", "eigen", "--scheme", sc], f"scheme={sc}", [])
+            for sc in EIGEN_SCHEMES]
+    cli += [("export viz pallas 64^3", ["--n", "64", "--export-prefix", f"{tmp}/x.", "--viz", "--pallas"], "iters=",
+             ["x.grids.npz", "x.components.npz", "x.stats.json", "x.grids_a2.png"]),
+            ("export mtx 16^3", ["--n", "16", "--export-mtx", "--export-prefix", f"{tmp}/m."], "iters=",
+             ["m.grids.npz", "m.stats.json", "m.Mat_G.mtx", "m.Mat_JDt.mtx", "m.Vec_stressRHS.mtx"])]
+    procs, exited = [], {}
+    for i, (label, argv, marker, files) in enumerate(cli):
+        out, err = open(os.path.join(tmp, f"cli{i}.out"), "w+"), open(os.path.join(tmp, f"cli{i}.err"), "w+")
+        proc = subprocess.Popen([sys.executable, "-m", "polystokes_tpu_torch.run", *argv], cwd=here, stdout=out,
+                                stderr=err, text=True)
+        # a thread stamps each process's exit, so its wall is its own
+        threading.Thread(target=lambda i=i, proc=proc: (proc.wait(), exited.__setitem__(i, time.perf_counter())),
+                         daemon=True).start()
+        procs.append((label, argv, marker, files, out, err, time.perf_counter(), proc))
+
+    # (a) the explicit blocks from the card's assembled state against the
+    # CPU port's: honey_coil 32^3, fp64, tile 8, CELL_ARROW
+    p32 = params(torch.float64, 1e-3, 12000, do_tile=True, tile_size=TILE_8)
+    ops32 = {}
+    for where in (dev, "cpu"):
+        g, s = honey_coil(n=N_CPU, dtype=torch.float64, device=where)
+        lw, fw = solver._weights(g, s, p32)
+        c, a = solver._setup(g, s, p32)
+        ops32[str(where)] = ex.ExplicitOperators(g, c, a, p32, weights=(lw, fw), viscosity=s.viscosity)
+    o_card, o_cpu = ops32[str(dev)], ops32["cpu"]
+    worst = 0.0
+    for name in BLOCKS_28:
+        m_card, m_cpu = getattr(o_card, name)(), getattr(o_cpu, name)()
+        same, rel = same_sparse(m_cpu, m_card)
+        worst = max(worst, rel)
+        print(f"phase 28a {name}: shape {m_card.shape}, nnz {m_card.nnz}, the same sparsity {same}, values rel {rel:.3e}",
+              flush=True)
+        if not (same and rel <= P28_ATOL):
+            fail(f"phase 28a: block {name} from the card's state differs from the CPU's (sparsity {same}, rel {rel})")
+    v_card, v_cpu = o_card.vectors(), o_cpu.vectors()
+    for k in v_cpu:
+        rel = float(np.abs(v_card[k] - v_cpu[k]).max(initial=0.0)) / max(float(np.abs(v_cpu[k]).max(initial=0.0)), 1e-300)
+        worst = max(worst, rel)
+        if not (v_card[k].shape == v_cpu[k].shape and rel <= P28_ATOL):
+            fail(f"phase 28a: vector {k} from the card's state differs from the CPU's (rel {rel})")
+    print(f"phase 28a {N_CPU}^3 tile {TILE_8} fp64: {len(BLOCKS_28)} blocks and {len(v_cpu)} vectors, card against "
+          f"CPU, worst rel {worst:.3e} (nP {o_card.nP}, nS {o_card.nS}, R {o_card.R})", flush=True)
+    del ops32, o_card, o_cpu
+
+    # (b) the exported operator against the hand kernels on A's
+    # configuration: the Schur matrix at 32^3, its factored form at 64^3 and
+    # on A's 128^3 system, applied to a seeded x in the DOF order, against
+    # the fused apply (kernels 4, 2, 5) and the unfused one (1, 2, 3)
+    systems = []
+    for n in (N_CPU, N_EXPORT):
+        g, s = honey_coil(n=n, dtype=torch.float32, device=dev)
+        packed_preflight(g, s, p_a, f"phase 28b {n}^3")
+        systems.append((n, g, s) + solver._setup(g, s, p_a))
+    systems.append((N_MAIN, grid, scene, cls, asm))
+    export_times = {}
+    for n, g, s, c, a in systems:
+        R = effective_max_regions(g, p_a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ops = ex.ExplicitOperators(g, c, a, p_a)
+        t_ops = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        op = ex.ExplicitOperators(g, c, a, p_a).schur_operator()
+        t_op = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ex.export_component_matrices(os.path.join(tmp, f"b{n}."), ops)
+        t_npz = time.perf_counter() - t0
+        npz_mib = os.path.getsize(os.path.join(tmp, f"b{n}.components.npz")) / 2**20
+        fill = region_fill(ops)
+        t_mat = None
+        if n == N_CPU:
+            t0 = time.perf_counter()
+            S = ops.schur_matrix()
+            t_mat = time.perf_counter() - t0
+        rng = np.random.default_rng(28)
+        x = rng.standard_normal(ops.nP + ops.nS).astype(np.float32).astype(np.float64)  # the card's f32 x, exactly
+        sx = op @ x
+        scale = float(np.abs(sx).max())
+        if t_mat is not None:
+            rel_mat = float(np.abs(S @ x - sx).max()) / scale
+            print(f"phase 28b {n}^3 schur_matrix: nnz {S.nnz}, formed in {t_mat:.3f} s; S x against the factored "
+                  f"operator rel {rel_mat:.3e}", flush=True)
+            if not rel_mat <= APPLY_RTOL:
+                fail(f"phase 28b {n}^3: schur_matrix and schur_operator disagree: {rel_mat}")
+            del S
+        xp = pa.pack_ptau(ex.ptau_from_dofs(x[:ops.nP], x[ops.nP:], ops, torch.float32, dev))
+        fused = solver.make_apply_packed_pap(g, c, a, p_a, R)
+        unfused = solver.make_apply_packed(g, c, a, p_a, R)
+        rels = {}
+        for label, fn, want in (("fused", lambda: fused(xp), {"grid_mom_pap": 1, "expand": 1, "finish": 1}),
+                                ("unfused", lambda: (unfused(xp), None), {"moments": 1, "expand": 1, "apply_reduced": 1})):
+            pa.reset_launches()
+            ax, pap = fn()
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in pa.LAUNCHES.items() if v}
+            if launched != want:
+                fail(f"phase 28b {n}^3 {label}: launches {launched}, expected {want}")
+            got = np.concatenate(ex.dofs_from_ptau(pa.unpack_ptau(ax), ops)).astype(np.float64)
+            rels[label] = float(np.abs(got - sx).max()) / scale
+            if pap is not None:
+                xsx = float(x @ sx)
+                rels["pap"] = abs(float(pap) - xsx) / abs(xsx)
+        export_times[n] = dict(operators=t_ops, schur_operator=t_op, components_npz=t_npz, schur_matrix=t_mat)
+        print(f"phase 28b {n}^3 A (untiled, tile {TILE}, f32): nP {ops.nP}, nS {ops.nS}, R {ops.R}; ExplicitOperators "
+              f"{t_ops:.3f} s, schur_operator (G, Dt, JG, JDt, McInv, BInv, uInv) {t_op:.3f} s, export_component_matrices "
+              f"{t_npz:.3f} s ({npz_mib:.1f} MiB); schur_matrix's region blocks hold up to {fill} entries; exported "
+              f"operator against the kernels: fused (4, 2, 5) rel {rels['fused']:.3e}, unfused (1, 2, 3) rel "
+              f"{rels['unfused']:.3e}, <x, A x> rel {rels['pap']:.3e}; peak RSS {peak_rss_gib():.2f} GiB", flush=True)
+        if not max(rels.values()) <= APPLY_RTOL:
+            fail(f"phase 28b {n}^3: the exported operator disagrees with the kernels: {rels}")
+        del ops, op, fused, unfused, xp, ax
+    del systems
+
+    # (c) warm start from an exported solution: the explicit solve at tol
+    # 1e-10, export_solution, solution_guess_ptau onto the card, step from it
+    g, s = honey_coil(n=N_CPU, dtype=torch.float64, device=dev)
+    packed_preflight(g, s, p32, "phase 28c")
+
+    def counted_step(label, guess=None):
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, st = solver.step(g, s, p32, initial_guess=guess)
+        torch.cuda.synchronize()
+        launches = dict(pa.LAUNCHES)
+        want = expected_launches("A", 1 + st["loop_passes"])
+        print(f"phase 28c {label} step {N_CPU}^3 tile {TILE_8} fp64: {time.perf_counter() - t0:.3f} s, iterations "
+              f"{st['iterations']}, error {st['error']:.3e}, converged {st['converged']}, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        if not (st["converged"] and st["boundary_active"] == 0) or launches != want:
+            fail(f"phase 28c {label}: {st}, launches {launches}, expected {want}")
+        return st, launches
+
+    cold, _ = counted_step("cold")
+    c, a = solver._setup(g, s, p32)
+    iters = [0]
+    t0 = time.perf_counter()
+    x, ops, info = ex.solve_explicit(g, c, a, p32, tol=1e-10, warm_start=False,
+                                     callback=lambda _x: iters.__setitem__(0, iters[0] + 1))
+    t_solve = time.perf_counter() - t0
+    prefix = os.path.join(tmp, "ws.")
+    ex.export_solution(prefix, ex.ptau_from_dofs(x[:ops.nP], x[ops.nP:], ops, torch.float64, dev), ops)
+    guess = ex.solution_guess_ptau(prefix, ops, torch.float64)
+    print(f"phase 28c solve_explicit tol 1e-10: info {info}, {iters[0]} iterations, {t_solve:.3f} s; the guess on "
+          f"{guess.p.device}", flush=True)
+    if info != 0 or guess.p.device != torch.device(dev):
+        fail(f"phase 28c: the explicit solve failed (info {info}) or the guess is not on the card")
+    warm, launches = counted_step("warm", guess)
+    for name, k in launches.items():
+        if k:
+            table[name]["launches_by_path"]["A_warm"] = k
+    if not warm["iterations"] < max(cold["iterations"] // 4, 2):
+        fail(f"phase 28c: the warm step took {warm['iterations']} iterations against the cold {cold['iterations']}")
+    x0 = ex.load_solution_guess(prefix, ops)
+    _, _, info2 = ex.solve_explicit(g, c, a, p32, warm_start=False, x0=x0)
+    print(f"phase 28c warm against cold: {warm['iterations']} against {cold['iterations']} iterations; the loaded "
+          f"guess through solve_explicit: info {info2}", flush=True)
+    if info2 != 0:
+        fail(f"phase 28c: solve_explicit from the loaded guess returned info {info2}")
+    del x, ops, guess, c, a
+
+    # (d) the CLI processes: exit 0, converged=True, their files and lines
+    for i, (label, argv, marker, files, out, err, t0, proc) in enumerate(procs):
+        rc = proc.wait(timeout=600)
+        while i not in exited:
+            time.sleep(0.01)
+        out.seek(0)
+        err.seek(0)
+        text = out.read()
+        lines = [ln for ln in text.splitlines() if ln.startswith("step ")]
+        print(f"phase 28d CLI {label} (python -m polystokes_tpu_torch.run {' '.join(argv)}): rc {rc}, process wall "
+              f"{exited[i] - t0:.1f} s", flush=True)
+        for ln in text.splitlines():
+            if ln.startswith(("step ", "exported to", "rendered")):
+                print(f"  {ln}", flush=True)
+        if rc != 0:
+            fail(f"phase 28d {label} exited with {rc}: {err.read()[-2000:]}")
+        if len(lines) != 1 or "converged=True" not in lines[0] or marker not in lines[0]:
+            fail(f"phase 28d {label}: expected one converged step line with {marker}, got {lines}")
+        missing = [f for f in files if not os.path.exists(os.path.join(tmp, f))]
+        if missing or (files and "exported to" not in text) or ("--viz" in argv and "rendered " not in text):
+            fail(f"phase 28d {label}: missing files {missing} or the export / render lines")
+        out.close()
+        err.close()
+    shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t28
+    print(f"phase 28 wall: {wall:.1f} s", flush=True)
+    return export_times, wall
 
 
 def main() -> None:
@@ -2376,6 +2655,8 @@ def main() -> None:
         print(f"phase 27: the machine has {torch.cuda.device_count()} card, so no two-card mesh ran", flush=True)
     del vel_u, cls_t, asm_t, ref_t
     print(f"phase 27 wall: {time.perf_counter() - t27:.1f} s", flush=True)
+
+    phase_28_export(grid, scene, cls, asm, p_a, table)
 
     for name, entry in table.items():
         if MAIN_PATH[name] is None:

@@ -145,3 +145,23 @@ def monomial_matrix(axis: int, basis: BasisOrder = BasisOrder.QUADRATIC) -> np.n
         A[9, 1] = 1.0
         A[10, 2] = 1.0
     return A
+
+
+def evaluate_velocity(offset: torch.Tensor, axis: int, w: torch.Tensor, basis: BasisOrder = BasisOrder.QUADRATIC) -> torch.Tensor:
+    """u_axis at ``offset`` for region coefficients w (..., D)."""
+    return torch.sum(conversion_coefficients(offset, axis, basis) * w, dim=-1)
+
+
+def divergence(offset: torch.Tensor, w: torch.Tensor, basis: BasisOrder = BasisOrder.QUADRATIC) -> torch.Tensor:
+    """Analytic divergence of the polynomial field at ``offset`` (for tests)."""
+    x, y, z = offset[..., 0], offset[..., 1], offset[..., 2]
+    if basis == BasisOrder.QUADRATIC:
+        dvx_dx = w[..., 3] + 2 * w[..., 6] * x + w[..., 7] * y + w[..., 8] * z
+        dvy_dy = w[..., 13] + w[..., 16] * x + 2 * w[..., 18] * y + w[..., 19] * z
+        dvz_dz = (-w[..., 3] - 2 * w[..., 6] * x - w[..., 7] * y - w[..., 8] * z
+                  - w[..., 13] - w[..., 16] * x - 2 * w[..., 18] * y - w[..., 19] * z)
+    else:
+        dvx_dx = w[..., 3]
+        dvy_dy = w[..., 7]
+        dvz_dz = -w[..., 3] - w[..., 7]
+    return dvx_dx + dvy_dy + dvz_dz

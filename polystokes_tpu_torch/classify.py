@@ -41,6 +41,14 @@ def is_active(lbl):
     return (lbl == ACTIVEFLUID) | (lbl == BOUNDARY)
 
 
+def is_reduced(lbl):
+    return (lbl == REDUCED) | (lbl == BOUNDARY)
+
+
+def is_solved(lbl):
+    return (lbl == GENERICFLUID) | (lbl == ACTIVEFLUID) | (lbl == REDUCED) | (lbl == BOUNDARY)
+
+
 def lower_faces(face_arr, axis):
     """Center-shaped view of each cell's lower face (face index == cell)."""
     return face_arr.narrow(axis, 0, face_arr.shape[axis] - 1)

@@ -23,9 +23,13 @@ kernels on packed [7, nx, ny, nz] vectors (``use_pallas=True``, where the
 packed layout takes the configuration; never under MULTIGRID), with
 ``fuse_pap``, ``fuse_update`` and ``fuse_expand`` choosing among the
 packed kernels.  Untiled, ``cc_host_callback`` labels the connected
-components on the host (``classify.connected_components_host``).  A field set to a
-value outside these families raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it; nothing is ignored silently.
+components on the host (``classify.connected_components_host``).
+
+Every value of JAX's accepts here too.  As there, ``step`` always runs the
+factored pressure-stress system: ``matrix_scheme`` and ``solver_type``
+EIGEN act on the host explicit path (``host_solve.solve``, the CLI's
+``--solver eigen``), and ``step`` handed EIGEN runs MINRES; the export
+switches drive the CLI's export (``export.py``).
 """
 from __future__ import annotations
 
@@ -75,16 +79,6 @@ class BasisOrder(enum.Enum):
 MINWEIGHT = 0.1
 NSAMPLES = 2
 
-# (field, supported values, ROADMAP.md item that ports the other values)
-_UNSUPPORTED = (
-    ("matrix_scheme", (MatrixScheme.PRESSURE_STRESS,), "Queue 1 item 13 (host explicit schemes)"),
-    ("solver_type", (SolverType.PCG_MATRIX_VECTOR_PRODUCTS, SolverType.BICGSTAB, SolverType.MINRES),
-     "Queue 1 item 13 (host explicit schemes)"),
-    ("export_matrices", (False,), "Queue 1 item 13 (export)"),
-    ("export_component_matrices", (False,), "Queue 1 item 13 (export)"),
-    ("export_stats", (False,), "Queue 1 item 13 (export)"),
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class SolverParams:
@@ -92,9 +86,10 @@ class SolverParams:
 
     ``device_warm_start`` with ``use_warm_start`` seeds the device CG with
     the warm-start guess (``solver._warm_guess``), as in the JAX package.
-    There ``use_warm_start`` alone feeds only the host EIGEN path, which
-    raises above; the ``mg_*`` knobs act only under MULTIGRID.  ``fuse_expand`` acts only under ``fuse_update`` on the reduced
-    step."""
+    There ``use_warm_start`` alone feeds only the host EIGEN path
+    (``host_solve.solve_host``); the ``mg_*`` knobs act only under
+    MULTIGRID.  ``fuse_expand`` acts only under ``fuse_update`` on the
+    reduced step."""
 
     # -- discretization / solve control
     tolerance: float = 1e-3
@@ -168,12 +163,6 @@ class SolverParams:
             raise ValueError("tile_size >= 1 and tile_padding >= 0 required")
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be torch.float32 or torch.float64, got {self.dtype}")
-        for name, supported, item in _UNSUPPORTED:
-            if getattr(self, name) not in supported:
-                raise NotImplementedError(
-                    f"SolverParams.{name}={getattr(self, name)!r} is not ported yet "
-                    f"(only {' or '.join(repr(v) for v in supported)}); see ROADMAP.md {item}"
-                )
 
     def replace(self, **kw) -> "SolverParams":
         return dataclasses.replace(self, **kw)

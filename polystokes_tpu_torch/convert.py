@@ -28,8 +28,7 @@ def torch_dtype(dtype) -> torch.dtype:
 
 
 def params_from_jax(p) -> config.SolverParams:
-    """The JAX package's SolverParams -> the port's (every field; values
-    the port does not implement raise NotImplementedError)."""
+    """The JAX package's SolverParams -> the port's (every field)."""
     kw = {}
     for f in dataclasses.fields(config.SolverParams):
         val = getattr(p, f.name)

@@ -465,6 +465,12 @@ def gather_com_xyz(com, region_ids):
     return tuple(torch.where(ok, com[safe, i], 0.0) for i in range(3))
 
 
+def gather_com(com, region_ids):
+    """Per-sample COM [grid..., 3] (0 off regions)."""
+    safe = region_ids.clamp(0, com.shape[0] - 1).long()
+    return torch.where((region_ids >= 0)[..., None], com[safe], 0.0)
+
+
 def _best_fit(fitM, fitb, valid):
     L = torch.linalg.cholesky(_eye_where_invalid(fitM, valid))
     return torch.where(valid[:, None], torch.cholesky_solve(fitb[..., None], L)[..., 0], 0.0)
@@ -670,3 +676,88 @@ def reduce_J(grid: Grid, cls: Classification, com, s_faces, params: SolverParams
 def expand_J(grid: Grid, cls: Classification, com, w, params: SolverParams):
     """u = J^T w rows on reduced faces (w [R, D])."""
     return Coupling(grid, cls, com, params, w.shape[0]).expand(w)
+
+
+def viscosity_incl_boundary(grid: Grid, cls: Classification, com, viscosity_c, viscosity_e, params: SolverParams, R: int):
+    """Incl-boundary reduced viscosity matrices [R, D, D], as the JAX
+    package's: the reference's buildReducedViscosityMatrixSystems variant
+    (Solver.cpp:1696-1909), used by no active scheme but part of the
+    component surface.
+
+    Unlike the interior-only sweep (gating on the *sample* being strictly
+    inside a region), this sweeps reduced FACES: every cell/edge stress
+    sample contributes the pairs of its adjacent faces that are reduced.
+    The same rank-1 identity applies with per-face gating:
+
+      V_r = sum_cells  (mu_c/dx^2)      u_c u_c^T,
+            u_c = c(hi)*chi_hi - c(lo)*chi_lo
+          + sum_edges 0.5 (mu_e/dx^2)   u_e u_e^T,
+            u_e = sum_{4 faces} sigma_f c(f) * chi_f
+
+    with chi_f = 1[face reduced] (the reference's adjacentInteriorIndex >=
+    0 check) and the sample accumulated into the gated faces' region."""
+    dtype = params.dtype
+    dev = com.device
+    D = params.reduced_dof
+    inv_dx2 = 1.0 / (grid.dx * grid.dx)
+    vr = torch.zeros((R, D, D), dtype=dtype, device=dev)
+
+    def face_red(a):
+        return ((cls.face_labels[a] == REDUCED) & (cls.face_region[a] >= 0)).to(dtype)
+
+    def gated(chi, reg):
+        return torch.where(chi > 0, reg.to(torch.int32), -1)
+
+    # ---- cell-centered terms
+    shape = cls.cell_labels.shape
+    for a in range(3):
+        A = torch.as_tensor(monomial_matrix(a, params.basis), dtype=dtype, device=dev)
+        chi_lo, chi_hi = face_at_cell(face_red(a), a, 0), face_at_cell(face_red(a), a, 1)
+        reg_lo, reg_hi = face_at_cell(cls.face_region[a], a, 0), face_at_cell(cls.face_region[a], a, 1)
+        # region of the gated faces (they agree when both are reduced); the
+        # offsets use its COM
+        ids = torch.maximum(gated(chi_lo, reg_lo), gated(chi_hi, reg_hi))
+        g = gather_com_xyz(com, ids)
+        p = [_coord_axis(shape, i, dtype, dev) - g[i] for i in range(3)]
+        p_lo, p_hi = list(p), list(p)
+        p_lo[a], p_hi[a] = p[a] - 0.5, p[a] + 0.5
+        m_lo = monomials_xyz(*p_lo, params.basis)
+        m_hi = monomials_xyz(*p_hi, params.basis)
+        dm = torch.stack([h * chi_hi - l * chi_lo for h, l in zip(m_hi, m_lo)], dim=0)
+        w = viscosity_c.to(dtype) * inv_dx2 * (ids >= 0).to(dtype)
+        C = torch.einsum("dk,k...->d...", A, dm)
+        vr = vr + segment_rank1(C, C, w, ids, R)
+
+    # ---- edge-centered terms
+    for e in range(3):
+        p_ax, q_ax = EDGE_OFFSET_AXES[e]
+        eshape = cls.edge_labels[e].shape
+        chi, regs = {}, {}
+        for fa in (p_ax, q_ax):
+            # faces of axis fa around edge g: d=1 -> face index g (the
+            # "up"/at-edge position), d=0 -> face index g - e_t ("dn")
+            t = 3 - fa - e
+            for d in (0, 1):
+                before, after = (1, 0) if d == 0 else (0, 1)
+                chi[(fa, d)] = pad_axis(face_red(fa), t, before, after, 0)
+                regs[(fa, d)] = pad_axis(cls.face_region[fa], t, before, after, -1)
+        ids = torch.full(eshape, -1, dtype=torch.int32, device=dev)
+        for key, c in chi.items():
+            ids = torch.maximum(ids, gated(c, regs[key]))
+        g = gather_com_xyz(com, ids)
+        pos = [_coord_axis(eshape, i, dtype, dev) - g[i] for i in range(3)]
+        mono_stack, A_parts = [], []
+        for fa, other in ((p_ax, q_ax), (q_ax, p_ax)):
+            off = face_offsets(fa)
+            up = [pos[i] + off[i] for i in range(3)]
+            dn = list(up)
+            dn[other] = up[other] - 1.0
+            m_up = monomials_xyz(*up, params.basis)
+            m_dn = monomials_xyz(*dn, params.basis)
+            mono_stack.extend([d_ * chi[(fa, 0)] - u_ * chi[(fa, 1)] for d_, u_ in zip(m_dn, m_up)])
+            A_parts.append(monomial_matrix(fa, params.basis))
+        A_stack = torch.as_tensor(np.concatenate(A_parts, axis=1), dtype=dtype, device=dev)
+        w = 0.5 * viscosity_e[e].to(dtype) * inv_dx2 * (ids >= 0).to(dtype)
+        C = torch.einsum("dk,k...->d...", A_stack, torch.stack(mono_stack, dim=0))
+        vr = vr + segment_rank1(C, C, w, ids, R)
+    return vr

@@ -6,20 +6,26 @@ lines.
         --tile-size 16 --tile-padding 2 --tolerance 1e-3 \
         [--uniform] [--params params.json] [--checkpoint out/ck.npz] \
         [--resume out/ck.npz] [--pallas] [--precond multigrid] \
-        [--chunked | --crop | --flip P | --sim | --profile] [--device cpu]
+        [--chunked | --crop | --flip P | --sim | --profile | --solver eigen] \
+        [--scheme all_dofs] [--export-prefix out/run. [--export-mtx] [--viz]] \
+        [--device cpu]
 
 The analog of driving the reference node from a Houdini scene: the same
 knobs (exec/HDK_PolyStokes.C:86-220) exposed as flags, stats printed per
-step (printStats parity), and checkpointing.  It runs on the CUDA card
-unless ``--device cpu`` is given.  As in the JAX package, the solve runs
+step (printStats parity), optional operator/grid export and
+checkpointing.  It runs on the CUDA card unless ``--device cpu`` is
+given.  As in the JAX package, the solve runs
 the unpacked apply unless ``--pallas`` selects the packed kernels, which
 ``solver.check_pallas`` turns off, with a warning, for a scene with liquid
 on the domain's index-0 planes; ``--profile`` prints the per-stage times
 of ``profiling.step_instrumented``; ``--flip P`` runs FLIP frames with P
 particle slots (``flip.flip_frame``, without reseeding, as the JAX CLI
-does).  Flags of modes the port does not
-have yet raise ``NotImplementedError`` naming their ROADMAP.md item before
-any scene is built.
+does); ``--solver eigen`` solves the ``--scheme``'s explicit system on the
+host (``host_solve.solve_host``: setup and write-back on the device,
+scipy between).  After the steps, ``--export-prefix`` (or the export
+switches of ``--params``) writes the grids, the component matrices (npz,
+or MatrixMarket under ``--export-mtx``) and the last step's stats
+(``export.py``), and ``--viz`` renders the grids to PNG (``viz.py``).
 """
 from __future__ import annotations
 
@@ -96,21 +102,6 @@ def build_argparser():
     return p
 
 
-# flag -> the ROADMAP.md item that ports its mode (--solver eigen and
-# --scheme raise through SolverParams, naming theirs)
-_UNPORTED = (
-    ("export_prefix", "Queue 1 item 13 (export)"),
-    ("export_mtx", "Queue 1 item 13 (export)"),
-    ("viz", "Queue 1 item 13 (export)"),
-)
-
-
-def _check_unported(args):
-    for name, item in _UNPORTED:
-        if getattr(args, name):
-            raise NotImplementedError(f"--{name.replace('_', '-')} is not ported yet; see ROADMAP.md {item}")
-
-
 def _params(args):
     """SolverParams from the flags, field for field as the JAX package's
     CLI builds them, then ``--params`` over them."""
@@ -150,12 +141,42 @@ def _line(label, k, seconds, stats, extra=""):
             f"  converged={bool(stats['converged'])}{extra}  regions={int(stats['n_regions'])}")
 
 
+def _export(args, grid, scene, params, stats):
+    """The JAX CLI's export block: the grids, the component matrices and
+    the last step's stats of the scene after the steps, under the prefix;
+    with ``--viz`` the grids rendered to PNG."""
+    from .classify import classify, effective_max_regions
+    from .config import SolverType
+    from .export import ExplicitOperators, export_component_matrices, export_grids, export_stats
+    from .solver import assemble
+    from .weights import compute_weights
+
+    prefix = args.export_prefix or params.export_prefix
+    R = effective_max_regions(grid, params)
+    lw, fw = compute_weights(grid, scene.surface_sdf, scene.collision_sdf, params.dtype)
+    cls = classify(grid, lw, fw, params)
+    asm, _ = assemble(grid, scene, cls, lw, fw, params, R)
+    ops = ExplicitOperators(grid, cls, asm, params, weights=(lw, fw), viscosity=scene.viscosity)
+    if args.export_prefix or params.export_matrices:
+        export_grids(prefix, cls, lw, fw)
+    if args.export_prefix or params.export_component_matrices:
+        export_component_matrices(prefix, ops, fmt="mtx" if args.export_mtx else "npz")
+    if args.export_prefix or params.export_stats:
+        export_stats(prefix, stats, from_device=params.solver_type != SolverType.EIGEN)
+    print(f"exported to {prefix}*")
+    if args.viz:
+        from .viz import render_npz
+
+        for f in render_npz(prefix + "grids.npz"):
+            print(f"rendered {f}")
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    _check_unported(args)
 
     import torch
 
+    from .config import SolverType
     from .io.checkpoint import load_checkpoint, save_checkpoint
     from .scenes.builders import SCENES
     from .solver import check_pallas, sample_density
@@ -214,6 +235,16 @@ def main(argv=None):
             sync()
             print(_line("step", k, time.perf_counter() - t0, stats, f"  interrupted={stats['interrupted']}"), flush=True)
             scene = dataclasses.replace(scene, velocity=vel)
+    elif params.solver_type == SolverType.EIGEN:
+        from .host_solve import solve_host
+
+        for k in range(start, start + args.steps):
+            t0 = time.perf_counter()
+            vel, valid, stats = solve_host(grid, scene, params)
+            sync()
+            print(f"step {k}: {time.perf_counter() - t0:.3f}s  scheme={stats['scheme']}"
+                  f"  converged={bool(stats['converged'])}  regions={int(stats['n_regions'])}", flush=True)
+            scene = dataclasses.replace(scene, velocity=vel)
     elif args.flip:
         from .flip import flip_frame, seed_particles
 
@@ -242,6 +273,12 @@ def main(argv=None):
             sync()
             print(_line("step", k, time.perf_counter() - t0, stats), flush=True)
             scene = dataclasses.replace(scene, velocity=vel)
+
+    # exports: the CLI flag takes precedence, otherwise the SolverParams
+    # export knobs drive what gets written (exportMatrices /
+    # exportComponentMatrices / exportStats toggles, HDK_PolyStokes.C:189-206)
+    if args.export_prefix or params.export_matrices or params.export_component_matrices or params.export_stats:
+        _export(args, grid, scene, params, stats)
 
     if args.checkpoint:
         save_checkpoint(args.checkpoint, grid, scene, params, start + args.steps)

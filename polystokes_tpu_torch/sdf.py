@@ -121,6 +121,12 @@ def complement(g: Callable) -> Callable:
     return lambda x, y, z: -g(x, y, z)
 
 
+def constant(value: float) -> Callable:
+    """The field ``value`` everywhere, in the coordinates' dtype and device."""
+    return lambda x, y, z: torch.full(torch.broadcast_shapes(x.shape, y.shape, z.shape), value, dtype=x.dtype,
+                                      device=x.device)
+
+
 def sample_at_centers(f: Callable, res, dx: float, dtype, device) -> torch.Tensor:
     """Sample a world-space SDF callable at cell centers -> (nx,ny,nz)."""
     xs, ys, zs = coord_grids(res, (0.0, 0.0, 0.0), dtype, device)

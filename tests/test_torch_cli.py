@@ -12,11 +12,14 @@
   continues), ``--chunked``, ``--sim --steps 1``, and ``--crop`` on
   viscous_beam 64^3 (the smallest builder scene that CLI's margin of 4
   crops; 40 iterations), where the box is checked.
-* Every flag of an unported mode raises ``NotImplementedError`` naming its
-  ROADMAP.md item before a scene is built; ``--device`` defaults to the
-  card.
+* The host surface's flags at 12^3 on the CPU, one run each:
+  ``--solver eigen`` (its ``step k: ... scheme=...`` line),
+  ``--scheme all_dofs`` with it, ``--export-prefix`` (grids, components
+  and stats), ``--export-mtx`` (MatrixMarket files instead of the npz) and
+  ``--viz`` (the rendered sheet); ``--device`` defaults to the card.
 """
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -140,22 +143,42 @@ def test_cli_modes_on_the_cpu(tmp_path, capsys, monkeypatch):
     assert boxes == [{"lo": (0, 16, 32), "hi": (64, 48, 64), "res": (64, 32, 32)}]
 
 
-_ITEMS = [
-    (["--export-prefix", "x."], "Queue 1 item 13"), (["--export-mtx"], "Queue 1 item 13"), (["--viz"], "Queue 1 item 13"),
-    (["--solver", "eigen"], "Queue 1 item 13"), (["--scheme", "all_dofs"], "Queue 1 item 13"),
-]
+_SMALL = ["--scene", "jelly_jam", "--n", "12", "--fp64", "--tile-size", "6", "--max-iterations", "300",
+          "--tolerance", "1e-4", "--device", "cpu"]
+# flag -> (extra flags, the step line's marker, files under the prefix)
+_HOST_FLAGS = {
+    "--solver": (["--solver", "eigen"], "scheme=pressure_stress", []),
+    "--scheme": (["--solver", "eigen", "--scheme", "all_dofs"], "scheme=all_dofs", []),
+    "--export-prefix": (["--export-prefix", "{p}"], "iters=", ["grids.npz", "components.npz", "stats.json"]),
+    "--export-mtx": (["--export-prefix", "{p}", "--export-mtx"], "iters=",
+                     ["grids.npz", "stats.json", "Mat_G.mtx", "Mat_Inv_Mr_plus_2JDtuDJ.mtx", "Vec_stressRHS.mtx"]),
+    "--viz": (["--export-prefix", "{p}", "--viz"], "iters=", ["grids.npz", "grids_a2.png"]),
+}
 
 
-def test_unported_flags_raise_before_a_scene(monkeypatch):
-    def no_scene(*a, **k):
-        raise AssertionError("a scene was built")
+@pytest.mark.parametrize("flag", list(_HOST_FLAGS))
+def test_host_surface_flags_run(flag, tmp_path, capsys):
+    extra, marker, files = _HOST_FLAGS[flag]
+    prefix = str(tmp_path / "out" / "x.")
+    run.main(_SMALL + [a.replace("{p}", prefix) for a in extra])
+    out = capsys.readouterr().out
+    step_lines = [ln for ln in out.splitlines() if ln.startswith("step 0:")]
+    assert len(step_lines) == 1 and "converged=True" in step_lines[0] and marker in step_lines[0], out
+    for f in files:
+        assert (tmp_path / "out" / f"x.{f}").exists(), f
+    if files:
+        assert f"exported to {prefix}*" in out
+    if flag == "--export-mtx":
+        assert not (tmp_path / "out" / "x.components.npz").exists()
+    if flag == "--viz":
+        assert f"rendered {prefix}grids_a2.png" in out
+    if flag == "--export-prefix":
+        with open(prefix + "stats.json") as f:
+            stats = json.load(f)
+        assert stats["converged"] == 1.0 and stats["iterations"] >= 1
 
-    from polystokes_tpu_torch.scenes import builders
 
-    monkeypatch.setattr(builders, "SCENES", {"honey_coil": no_scene})
-    for flags, item in _ITEMS:
-        with pytest.raises(NotImplementedError, match=item):
-            run.main(flags + ["--device", "cpu"])
+def test_device_defaults_to_the_card():
     assert run.build_argparser().parse_args([]).device == "cuda"
 
 

@@ -3,7 +3,10 @@ port's import hygiene.
 
 honey_coil 16^3, tile 8, untiled cube regions, max_regions 64, CELL_ARROW,
 fp64, tol 1e-3, no BiCGStab fallback, ``fuse_pap=False`` on both sides
-(the JAX side through its Pallas kernels in interpret mode).
+(the JAX side through its Pallas kernels in interpret mode).  The host
+surface's options (the export switches, ``matrix_scheme``, ``solver_type``
+EIGEN) construct, come over from JAX's params and leave ``step`` as JAX's
+dispatch leaves it.
 """
 import dataclasses
 import subprocess
@@ -17,8 +20,10 @@ import jax.numpy as jnp
 
 from polystokes_tpu import step as jstep
 from polystokes_tpu.config import BasisOrder as JBasisOrder
+from polystokes_tpu.config import MatrixScheme as JMatrixScheme
 from polystokes_tpu.config import PreconditionerType as JPC
 from polystokes_tpu.config import SolverParams as JParams
+from polystokes_tpu.config import SolverType as JSolverType
 from polystokes_tpu.scenes import builders as jbuilders
 
 from polystokes_tpu_torch import convert
@@ -92,6 +97,8 @@ def test_import_leaves_jax_out():
         "import polystokes_tpu_torch, polystokes_tpu_torch.convert, polystokes_tpu_torch.scenes.builders\n"
         "import polystokes_tpu_torch.sim, polystokes_tpu_torch.domain, polystokes_tpu_torch.run\n"
         "import polystokes_tpu_torch.io.checkpoint\n"
+        "import polystokes_tpu_torch.export, polystokes_tpu_torch.host_solve, polystokes_tpu_torch.precond_host\n"
+        "import polystokes_tpu_torch.viz\n"
         "new = set(sys.modules) - pre\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'jaxlib', 'polystokes_tpu'))\n"
         "assert not bad, bad\n"
@@ -100,13 +107,46 @@ def test_import_leaves_jax_out():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
 
 
-@pytest.mark.parametrize("field, value", [
-    ("export_matrices", True), ("export_stats", True), ("export_component_matrices", True),
-    ("matrix_scheme", MatrixScheme.ALL_DOFS), ("solver_type", SolverType.EIGEN),
-])
-def test_unported_options_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SolverParams(**{field: value})
+_HOST_OPTIONS = [
+    ("export_matrices", True, "export_matrices", True), ("export_stats", True, "export_stats", True),
+    ("export_component_matrices", True, "export_component_matrices", True),
+    ("matrix_scheme", MatrixScheme.ALL_DOFS, "matrix_scheme", JMatrixScheme.ALL_DOFS),
+    ("solver_type", SolverType.EIGEN, "solver_type", JSolverType.EIGEN),
+]
+_STEPS = {}
+
+
+def _small_step(params):
+    """The port's step on jelly_jam 12^3 (fp64, tile 6, the unpacked
+    default apply, IDENTITY, tol 1e-4), cached by params."""
+    if params not in _STEPS:
+        from polystokes_tpu_torch.scenes.builders import jelly_jam
+
+        grid, scene = jelly_jam(n=12, dtype=torch.float64, device="cpu")
+        _STEPS[params] = tstep(grid, scene, params)
+    return _STEPS[params]
+
+
+@pytest.mark.parametrize("field, value, jfield, jvalue", _HOST_OPTIONS, ids=[o[0] for o in _HOST_OPTIONS])
+def test_host_surface_options_act_as_jaxs(field, value, jfield, jvalue):
+    """Each host-surface option constructs, comes over from JAX's params
+    and acts on ``step`` as JAX's does: the export switches and
+    ``matrix_scheme`` leave the device step bit-equal to the default's (it
+    always runs the factored pressure-stress system); EIGEN handed to
+    ``step`` takes its MINRES branch, bit-equal to MINRES's."""
+    base = SolverParams(dtype=torch.float64, tile_size=6, tolerance=1e-4, max_iterations=300)
+    p = base.replace(**{field: value})
+    assert getattr(p, field) == value
+    jbase = JParams(dtype=jnp.float64, tile_size=6, tolerance=1e-4, max_iterations=300)
+    assert convert.params_from_jax(dataclasses.replace(jbase, **{jfield: jvalue})) == p
+    ref = base.replace(solver_type=SolverType.MINRES) if field == "solver_type" else base
+    v_ref, _, s_ref = _small_step(ref)
+    v, _, s = _small_step(p)
+    assert s.keys() == s_ref.keys()
+    for k in s:  # NaN equals NaN here (MINRES's error on this scene)
+        assert s[k] == s_ref[k] or (isinstance(s[k], float) and np.isnan(s[k]) and np.isnan(s_ref[k])), k
+    for a, b in zip(v, v_ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("field", ["coeff_bf16", "deflation"])
